@@ -1,0 +1,77 @@
+"""The Mask-YOLO network — port of `mask_yolo_tpu/models/network.py`.
+
+    C4   = backbone(image)                       # [B, 28, 28, 512]
+    fmap = Conv3x3(C4) -> TOP_FEATURE_MAP_DEPTH  # neck
+    grid = yolo_head(C4)                         # [B, gh, gw, nb, 5+C]
+    masks = mask_head(rois, fmap)                # [B, R, 28, 28, C]
+
+Submodule names equal the flax module names, so a flax variable path maps to
+a torch state_dict key by joining with dots (`weights.from_jax_variables`).
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+from torch import nn
+
+from .mask_head import MaskHead
+from .mobilenet import MobileNetBackbone
+from .yolo_head import YoloHead
+
+DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+class MaskYoloNet(nn.Module):
+    def __init__(self, num_classes, n_box, top_feature_map_depth=256,
+                 mask_pool_size=14, backbone="mobilenet",
+                 compute_dtype="float32"):
+        super().__init__()
+        if backbone == "resnet50_fpn":
+            raise NotImplementedError(
+                "the resnet50_fpn backbone is not ported yet "
+                "(ROADMAP Queue 1, ResNet-50 + FPN)")
+        if backbone != "mobilenet":
+            raise ValueError(f"unknown backbone {backbone!r}")
+        dt = DTYPES[compute_dtype]
+        self.backbone = MobileNetBackbone(dtype=dt)
+        c4 = self.backbone.out_channels
+        # neck: reduce depth for the mask branch only
+        self.feature_map = nn.Conv2d(c4, top_feature_map_depth, 3, padding=1,
+                                     dtype=dt)
+        self.yolo = YoloHead(c4, n_box, num_classes, dtype=dt)
+        self.mask = MaskHead(top_feature_map_depth, num_classes, mask_pool_size,
+                             dtype=dt)
+
+    @torch.no_grad()
+    def reset_parameters(self, generator: torch.Generator):
+        """Seeded random weights: He-normal conv kernels, zero biases,
+        identity BatchNorm. He-normal keeps the activations' scale through the
+        net's ReLUs, so an untrained net still gives spread scores and masks
+        (flax's LeCun-normal default shrinks them toward logit 0). Draws on
+        the CPU generator, so a seed gives the same weights on every device."""
+        for m in self.modules():
+            if isinstance(m, (nn.Conv2d, nn.ConvTranspose2d)):
+                w = m.weight
+                # fan_in over the kernel's input axis: dim 1 for Conv2d
+                # [O, I/g, kh, kw], dim 0 for ConvTranspose2d [I, O, kh, kw]
+                cin = w.shape[0] if isinstance(m, nn.ConvTranspose2d) else w.shape[1]
+                std = math.sqrt(2.0 / (cin * w.shape[2] * w.shape[3]))
+                w.copy_(torch.randn(w.shape, generator=generator) * std)
+                if m.bias is not None:
+                    m.bias.zero_()
+            elif isinstance(m, nn.BatchNorm2d):
+                m.reset_parameters()
+
+    def trunk(self, image):
+        """image [B, H, W, 3] float in [0, 1] → (grid [B, gh, gw, nb, 5+C]
+        float32, fmap [B, h, w, C] in the compute dtype)."""
+        x = image.permute(0, 3, 1, 2).contiguous(memory_format=torch.channels_last)
+        c4 = self.backbone(x)
+        fmap = self.feature_map(c4.to(self.feature_map.weight.dtype))
+        return self.yolo(c4), fmap.permute(0, 2, 3, 1)
+
+    def mask_branch(self, rois, fmap):
+        """rois [B, R, 4] normalized → [B, R, 28, 28, C] sigmoid masks."""
+        return self.mask(rois, fmap)

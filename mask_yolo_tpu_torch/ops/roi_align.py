@@ -1,0 +1,91 @@
+"""Bilinear ROI crop and mask paste — port of `mask_yolo_tpu/ops/roi_align.py`.
+
+`crop_and_resize` is the plain PyTorch twin of the CUDA crop kernel
+(`ops/roi_crop.py`): the CPU path and the kernel's reference on the card.
+It keeps the JAX package's separable form,
+
+    crop[r] = Wy[r] @ image @ Wx[r]^T        (per channel)
+
+with Wy [pool_h, H] and Wx [pool_w, W] bilinear "tent" matrices whose rows
+are zero for samples outside the map (tf.image.crop_and_resize with
+extrapolation_value=0), and rounds the weights and the intermediate to the
+working dtype at the same points as the JAX version.
+"""
+
+from __future__ import annotations
+
+import torch
+
+
+def interp_matrix(lo, hi, in_size: int, out_size: int, dtype=torch.float32):
+    """Bilinear interpolation matrices for a batch of 1-D spans.
+
+    lo, hi: [...] normalized span start/end. Returns W [..., out_size,
+    in_size]; row i holds the two tent weights of sample i, all zero if the
+    sample lies outside [0, in_size - 1]. Sample coordinates:
+    lo·n + (i / (P-1))·((hi - lo)·n) with n = in_size - 1, or
+    0.5·(lo + hi)·n when P == 1. Weights are computed in f32 and only the
+    result is cast to `dtype`.
+    """
+    lo = lo.float()
+    hi = hi.float()
+    n = in_size - 1
+    dev = lo.device
+    if out_size > 1:
+        steps = torch.arange(out_size, dtype=torch.float32, device=dev) / (out_size - 1)
+        coords = lo[..., None] * n + steps * ((hi - lo)[..., None] * n)
+    else:
+        coords = 0.5 * (lo + hi)[..., None] * n
+    grid = torch.arange(in_size, dtype=torch.float32, device=dev)
+    w = torch.clamp(1.0 - torch.abs(coords[..., None] - grid), min=0.0)
+    in_range = (coords >= 0.0) & (coords <= n)
+    return (w * in_range[..., None].float()).to(dtype)
+
+
+def crop_and_resize(feature, boxes, crop_size, dtype=None):
+    """Batched bilinear crop: feature [B, H, W, C], boxes [B, R, 4]
+    (x1, y1, x2, y2) normalized → [B, R, ph, pw, C] in `dtype` (default: the
+    feature's dtype)."""
+    ph, pw = crop_size
+    b, h, w, c = feature.shape
+    r = boxes.shape[1]
+    dtype = feature.dtype if dtype is None else dtype
+    x1, y1, x2, y2 = boxes.unbind(-1)
+    wy = interp_matrix(y1, y2, h, ph, dtype)           # [B, R, ph, H]
+    wx = interp_matrix(x1, x2, w, pw, dtype)           # [B, R, pw, W]
+    feat = feature.to(dtype).reshape(b, h, w * c)
+    tmp = torch.matmul(wy.reshape(b, r * ph, h), feat).reshape(b, r, ph, w, c)
+    return torch.matmul(wx[:, :, None], tmp)           # [B, R, ph, pw, C]
+
+
+def paste_masks(masks, boxes, image_size, dtype=torch.float32):
+    """Paste per-ROI masks back onto the image canvas (inverse of the crop).
+
+    masks: [..., R, mh, mw]; boxes: [..., R, 4] (x1, y1, x2, y2) normalized.
+    Returns [..., R, H, W]: each mask bilinearly resized into its box, zero
+    elsewhere. For image pixel y the mask coordinate is
+    (y/(H-1) - y1) / (y2 - y1) · (mh - 1). Coordinates are f32; the two
+    contractions run in `dtype` (bf16 may flip borderline 0.5-threshold
+    pixels on mask edges).
+    """
+    mh, mw = masks.shape[-2:]
+    h, w = image_size
+    x1, y1, x2, y2 = boxes.float().unbind(-1)
+    dev = masks.device
+
+    def paste_matrix(lo, hi, out_size, m_size):
+        pix = torch.arange(out_size, dtype=torch.float32, device=dev) / max(out_size - 1, 1)
+        span = torch.clamp(hi - lo, min=1e-8)[..., None]
+        coords = (pix - lo[..., None]) / span * (m_size - 1)   # [..., R, out]
+        grid = torch.arange(m_size, dtype=torch.float32, device=dev)
+        # pixels slightly past the box edge still belong to the outline;
+        # clamp their sample coordinate to the border value
+        inside = (coords >= -0.5) & (coords <= (m_size - 1) + 0.5)
+        coords = torch.clamp(coords, 0.0, m_size - 1)
+        wgt = torch.clamp(1.0 - torch.abs(coords[..., None] - grid), min=0.0)
+        return (wgt * inside[..., None]).to(dtype)
+
+    py = paste_matrix(y1, y2, h, mh)                   # [..., R, H, mh]
+    px = paste_matrix(x1, x2, w, mw)                   # [..., R, W, mw]
+    tmp = torch.matmul(py, masks.to(dtype))            # [..., R, H, mw]
+    return torch.matmul(tmp, px.transpose(-1, -2))     # [..., R, H, W]

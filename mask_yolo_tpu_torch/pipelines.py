@@ -1,0 +1,120 @@
+"""Image → boxes + instance masks — port of the detect path of
+`mask_yolo_tpu/pipelines.py` (`images_f32`, `detect_outputs`,
+`detect_from_callables`).
+
+Decode, zero-area filter, score top-K, index-order class NMS, the MASK_TOP_K
+valid-first re-sort, the mask branch on the surviving slots, the paste to
+the image canvas and the 0.5 threshold all run on the input's device, in
+fixed shapes, with no host round trip.
+
+`lax.top_k` returns ties in index order; the port sorts with a stable
+descending sort to keep that order.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from .ops.boxes import decode_detections
+from .ops.nms import index_order_class_nms_mask
+from .ops.roi_align import paste_masks
+
+
+def images_f32(images):
+    """uint8 images → float32 in [0, 1] on their device; float images pass
+    through unchanged."""
+    if images.dtype == torch.uint8:
+        return images.float() / 255.0
+    return images
+
+
+def _top_k(values, k: int):
+    """(values, indices) of the k largest along the last axis, descending,
+    ties in index order (lax.top_k's order)."""
+    vals, idx = torch.sort(values, dim=-1, descending=True, stable=True)
+    return vals[..., :k], idx[..., :k]
+
+
+def _take(x, idx):
+    """x[b, idx[b, j], ...] for x [B, N, ...] and idx [B, k]."""
+    return torch.gather(x, 1, idx.reshape(idx.shape + (1,) * (x.dim() - 2))
+                        .expand(idx.shape + x.shape[2:]))
+
+
+def detect_outputs(net, images, config):
+    """Full image → boxes + instance masks with a `MaskYoloNet`.
+
+    images: [B, H, W, 3] uint8 or float in [0, 1]. Returns per image
+    (K = DETECTION_MAX_INSTANCES):
+      boxes   [B, K, 4] float32 pixel xyxy
+      classes [B, K] int32
+      scores  [B, K] float32
+      masks   [B, K, H, W] bool full-size instance masks
+      valid   [B, K] bool
+    """
+    return detect_from_callables(net.trunk, net.mask_branch, images, config)
+
+
+def detect_from_callables(trunk, mask_branch, images, config):
+    """detect_outputs with pluggable trunk (images → (grid, fmap)) and mask
+    branch ((rois, fmap) → [B, k, mh, mw, C] sigmoid masks) executors."""
+    k = config.DETECTION_MAX_INSTANCES
+    h, w = config.IMAGE_SHAPE[:2]
+
+    grid, fmap = trunk(images_f32(images))
+    det = decode_detections(grid.float(), config.anchors_wh, config.GRID_H,
+                            config.GRID_W)
+    boxes, scores, classes = det[..., :4], det[..., 4], det[..., 5].to(torch.int32)
+
+    # zero-area filter folded into validity
+    area_ok = ((boxes[..., 2] - boxes[..., 0]) * (boxes[..., 3] - boxes[..., 1])) > 0
+
+    # top-K by score; zero-area boxes sort last
+    top_scores, idx = _top_k(torch.where(area_ok, scores, -1.0), k)
+    top_boxes = _take(boxes, idx)
+    top_classes = _take(classes, idx)
+    valid = top_scores > config.OBJ_THRESHOLD
+
+    # the reference's second-stage class-aware NMS, in index (= score) order
+    det_nms = float(getattr(config, "DETECTION_NMS_THRESHOLD", 0.7))
+    valid = valid & index_order_class_nms_mask(top_boxes, top_classes, valid,
+                                               det_nms)
+
+    # MASK_TOP_K: masks for only the kp best NMS survivors. Slots are
+    # re-sorted valid-first (score order kept within each group), so the
+    # survivors lead; identical detections while <= kp boxes survive.
+    kp = int(getattr(config, "MASK_TOP_K", 0) or 0)
+    kp = min(kp, k) if kp > 0 else k
+    if kp < k:
+        _, order = _top_k(torch.where(valid, top_scores + 2.0, top_scores), k)
+        top_boxes = _take(top_boxes, order)
+        top_scores = _take(top_scores, order)
+        top_classes = _take(top_classes, order)
+        valid = _take(valid, order)
+    mask_boxes = top_boxes[:, :kp].contiguous()
+    mask_classes = top_classes[:, :kp]
+
+    # mask branch on the kp survivors only, then each ROI's own class
+    pred_masks = mask_branch(mask_boxes, fmap)                 # [B, kp, mh, mw, C]
+    sel = mask_classes.long()[:, :, None, None, None].expand(
+        pred_masks.shape[:-1] + (1,))
+    sel_masks = torch.gather(pred_masks, -1, sel)[..., 0]      # [B, kp, mh, mw]
+
+    # paste onto the image canvas and threshold at 0.5; bf16 configs paste
+    # in bf16 (ops/roi_align.paste_masks)
+    paste_dtype = (torch.bfloat16 if config.COMPUTE_DTYPE == "bfloat16"
+                   else torch.float32)
+    full = paste_masks(sel_masks, mask_boxes, (h, w), dtype=paste_dtype)
+    full_bool = (full >= 0.5) & valid[:, :kp, None, None]
+    if kp < k:  # slots beyond kp carry no mask
+        full_bool = torch.cat([full_bool, full_bool.new_zeros(
+            (full_bool.shape[0], k - kp, h, w))], dim=1)
+
+    scale = torch.tensor([w, h, w, h], dtype=torch.float32, device=top_boxes.device)
+    return {
+        "boxes": top_boxes * scale,
+        "classes": top_classes,
+        "scores": top_scores,
+        "masks": full_bool,
+        "valid": valid,
+    }

@@ -1,0 +1,92 @@
+"""Weight bridge: a flax variable tree of `MaskYoloNet` → the port's state_dict.
+
+Every flax leaf must land on a torch key and every torch key must be filled;
+the transposed conv must follow flax's kernel orientation (flipped)."""
+
+import flax.linen as nn
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+import torch.nn.functional as F
+
+from mask_yolo_tpu.models.network import MaskYoloNet as JaxNet
+from mask_yolo_tpu_torch import weights
+from mask_yolo_tpu_torch.models.network import MaskYoloNet
+
+torch.set_num_threads(2)
+
+
+@pytest.fixture(scope="module")
+def tiny_pair(tiny_config):
+    cfg = tiny_config
+    kw = dict(num_classes=cfg.NUM_CLASSES, n_box=cfg.N_BOX,
+              top_feature_map_depth=cfg.TOP_FEATURE_MAP_DEPTH,
+              mask_pool_size=cfg.MASK_POOL_SIZE)
+    variables = jax.device_get(JaxNet(**kw).init(
+        jax.random.PRNGKey(0), jnp.zeros((1, *cfg.IMAGE_SHAPE)),
+        jnp.zeros((1, 4, 4)), train=False))
+    return variables, MaskYoloNet(**kw)
+
+
+def _n_leaves(tree):
+    return sum(_n_leaves(v) if hasattr(v, "items") else 1 for v in tree.values())
+
+
+def test_bridge_maps_every_leaf_and_fills_every_key(tiny_pair):
+    variables, net = tiny_pair
+    state = weights.from_jax_variables(variables, net.state_dict().keys())
+    n_bn = _n_leaves(variables["batch_stats"]) // 2     # mean + var per BN
+    assert len(state) == _n_leaves(variables) + n_bn    # + num_batches_tracked
+    assert set(state) == set(net.state_dict())
+    # strict load: shapes line up with the torch modules
+    net.load_state_dict({k: torch.tensor(v) for k, v in state.items()})
+    np.testing.assert_array_equal(
+        net.backbone.conv1.conv.weight.detach().numpy(),
+        variables["params"]["backbone"]["conv1"]["conv"]["kernel"].transpose(3, 2, 0, 1))
+    np.testing.assert_array_equal(
+        net.backbone.block1.conv_dw_bn.running_var.numpy(),
+        variables["batch_stats"]["backbone"]["block1"]["conv_dw_bn"]["var"])
+
+
+def test_bridge_raises_on_unmapped_leaf_and_unfilled_key(tiny_pair):
+    variables, net = tiny_pair
+    keys = net.state_dict().keys()
+    extra = {"params": {**variables["params"],
+                        "stray": {"kernel": np.zeros((1, 1, 1, 1), np.float32)}},
+             "batch_stats": variables["batch_stats"]}
+    with pytest.raises(KeyError, match="stray"):
+        weights.from_jax_variables(extra, keys)
+    params = dict(variables["params"])
+    del params["feature_map"]
+    with pytest.raises(KeyError, match="feature_map"):
+        weights.from_jax_variables({"params": params,
+                                    "batch_stats": variables["batch_stats"]}, keys)
+    bogus = {"params": {"mask": {"mask_out": {"gamma": np.zeros(3)}}}}
+    with pytest.raises(KeyError, match="gamma"):
+        weights.from_jax_variables(bogus, keys)
+
+
+@pytest.mark.parametrize("b,h,w,cin,cout", [(2, 3, 3, 4, 5), (1, 4, 6, 8, 3),
+                                            (3, 5, 2, 16, 16)])
+def test_deconv_bridge_follows_flax_orientation(rng, b, h, w, cin, cout):
+    """flax ConvTranspose(2x2, s2) reads its kernel flipped relative to
+    torch's conv_transpose2d; the bridge flips it, the plain transpose does
+    not match."""
+    layer = nn.ConvTranspose(cout, (2, 2), strides=(2, 2), name="mask_deconv")
+    x = rng.randn(b, h, w, cin).astype(np.float32)
+    kernel = rng.randn(2, 2, cin, cout).astype(np.float32)
+    bias = rng.randn(cout).astype(np.float32)
+    want = np.asarray(layer.apply({"params": {"kernel": kernel, "bias": bias}}, x))
+
+    def torch_deconv(weight):
+        y = F.conv_transpose2d(torch.tensor(x).permute(0, 3, 1, 2),
+                               torch.tensor(weight), torch.tensor(bias), stride=2)
+        return y.permute(0, 2, 3, 1).numpy()
+
+    got = torch_deconv(weights.convert_kernel("mask_deconv", kernel))
+    # one f32 product per tap, no accumulation-order freedom beyond cin terms
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
+    unflipped = torch_deconv(np.ascontiguousarray(kernel.transpose(2, 3, 0, 1)))
+    assert np.abs(unflipped - want).max() > 0.5

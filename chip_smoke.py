@@ -13,6 +13,17 @@ Phases, each fatal on failure (nothing is caught):
                  trunk outputs go through the plain-crop mask branch too
   5. serve       BatchingExecutor(batch_size=16) answers 24 requests
   6. throughput  detect_batch at batch 128 bf16, CUDA events (recorded only)
+  7. build       the int8 kernels K1 (fused DS block) and K3 (fused mask
+                 branch), compiled in parallel while phases 2-6 run
+  8. kernels     K1 and K3 vs their plain PyTorch versions at the 224²
+                 slice's shapes and at CocoStyleConfig's 416² shapes: K1
+                 bit-equal (int8) or within rtol 1e-6 (f32 out), K3 within
+                 the bounds of tests/test_pallas_mask.py; CUDA-event times
+  9. int8 slice  MaskYOLO.quantize + detect_batch at 224² with K1 and K3
+                 (exactly 10 K1 launches and 1 K3 launch), held against the
+                 same detector's chained layers
+ 10. serve       BatchingExecutor over the int8 model answers 16 requests
+ 11. throughput  int8 detect_batch at batch 128, fused and chained (recorded)
 
 The last three lines are the `nvidia-smi` name/power-limit line, a JSON line
 of kernels, and {"ok": true, "device": {...}}. Without a CUDA device the
@@ -25,13 +36,18 @@ import json
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
 
-from mask_yolo_tpu_torch import MaskYOLO
+from mask_yolo_tpu_torch import CocoStyleConfig, MaskYOLO
 from mask_yolo_tpu_torch.data.shapes import ShapesConfig
 from mask_yolo_tpu_torch.ops import _build
+from mask_yolo_tpu_torch.ops.ds_block import fused_ds_block, fused_ds_block_reference
+from mask_yolo_tpu_torch.ops.mask_fused import (fused_mask_branch,
+                                                fused_mask_branch_reference,
+                                                pack_mask_weights, weights_to)
 from mask_yolo_tpu_torch.ops.roi_align import crop_and_resize
 from mask_yolo_tpu_torch.ops.roi_crop import crop_rois
 from mask_yolo_tpu_torch.pipelines import detect_from_callables, images_f32
@@ -42,6 +58,28 @@ BATCH = 16
 KERNEL_SHAPE = dict(b=16, h=28, w=28, c=256, k=10, pool=14)   # the detect path's crop
 CROP_TOL = {torch.float32: 1e-5, torch.bfloat16: 3e-2}        # max|Δ| / max|plain|
 MASK_AGREE = 0.995
+# the stride-1 DS blocks of the trunk (H, W, C, O, int8 output?): blocks 1, 3,
+# 5, 6 (f32 out: it ends the backbone), 8-12 and 14 -> 10 K1 calls per trunk
+DS_224 = [(112, 112, 32, 64, True), (56, 56, 64, 128, True), (28, 28, 256, 256, True),
+          (28, 28, 256, 512, False)] + [(14, 14, 512, 512, True)] * 5 + [(7, 7, 1024, 1024, True)]
+DS_416 = [(208, 208, 32, 64, True), (104, 104, 64, 128, True), (52, 52, 256, 256, True),
+          (52, 52, 256, 512, False), (26, 26, 512, 512, True), (13, 13, 1024, 1024, True)]
+K1_LAUNCHES, K3_LAUNCHES = 10, 1   # per int8 detect_batch
+
+
+class Int8Config(ShapesConfig):
+    """ShapesConfig at its full widths in bf16, with the int8 path's kernels:
+    int8 depthwise convs (needed by K1), fused DS blocks (K1), fused mask
+    branch (K3)."""
+    COMPUTE_DTYPE = "bfloat16"
+    QUANT_DW_INT8 = True
+    QUANT_FUSED_DS = True
+    QUANT_FUSED_MASK = True
+
+
+class Coco416Config(CocoStyleConfig):
+    QUANT_FUSED_DS = True
+    QUANT_FUSED_MASK = True
 
 
 def log(msg):
@@ -108,15 +146,23 @@ def phase_kernel(dev, rng):
     return results
 
 
-def run_main_path(fn, counts):
-    """Drive the main path with the launch count zeroed just before and read
-    just after; every main-path run must launch the kernel."""
-    crop_rois.launches = 0
+KERNELS = {"crop_rois": crop_rois, "fused_ds_block": fused_ds_block,
+           "fused_mask_branch": fused_mask_branch}
+
+
+def run_main_path(fn, counts, expect=("crop_rois",)):
+    """Drive a main path with every launch count zeroed just before and read
+    just after; each kernel in `expect` must have launched. counts[name]
+    collects the launches of each run."""
+    for k in KERNELS.values():
+        k.launches = 0
     out = fn()
     torch.cuda.synchronize()
-    if crop_rois.launches == 0:
-        raise AssertionError("the main path did not launch the crop kernel")
-    counts.append(crop_rois.launches)
+    for name in expect:
+        if KERNELS[name].launches == 0:
+            raise AssertionError(f"the main path did not launch {name}")
+    for name, k in KERNELS.items():
+        counts.setdefault(name, []).append(k.launches)
     return out
 
 
@@ -153,30 +199,30 @@ def phase_slice(dtype_name, dev, images, counts):
     valid_px = out_k["masks"].sum().item()
     log(f"[slice] {dtype_name}: detect_batch B={BATCH} ok, {int(out['valid'].sum())} valid "
         f"detections, {valid_px} mask pixels; kernel-vs-plain crop masks agree on "
-        f"{agree:.6f} of pixels (limit {MASK_AGREE}); crop launches {counts[-1]}")
+        f"{agree:.6f} of pixels (limit {MASK_AGREE}); crop launches {counts['crop_rois'][-1]}")
     if agree < MASK_AGREE:
         raise AssertionError("masks disagree between kernel and plain crop")
     return model, cfg
 
 
-def phase_serve(model, cfg, rng, counts):
+def phase_serve(model, cfg, rng, counts, n=24, expect=("crop_rois",), tag="serve"):
     ex = BatchingExecutor(model, cfg, batch_size=BATCH)
     try:
         ex.warmup(timeout=300)
-        images = (rng.random((24, *cfg.IMAGE_SHAPE)) * 255).astype(np.uint8)
+        images = (rng.random((n, *cfg.IMAGE_SHAPE)) * 255).astype(np.uint8)
 
         def serve():
             futs = [ex.submit(im, include_masks=i % 3 == 0) for i, im in enumerate(images)]
             return [f.result(timeout=300) for f in futs]
 
-        results = run_main_path(serve, counts)
+        results = run_main_path(serve, counts, expect)
     finally:
         ex.shutdown()
-    if len(results) != 24 or ex.stats["batches"] < 2:
+    if len(results) != n or ex.stats["batches"] < 2:
         raise AssertionError(f"served {len(results)} requests in {ex.stats['batches']} batches")
     lat = ex.latency_ms
     n_masks = sum("mask_rle" in d for r in results for d in r["detections"])
-    log(f"[serve] 24 requests answered, stats {ex.stats}, {n_masks} RLE masks; latency "
+    log(f"[{tag}] {n} requests answered, stats {ex.stats}, {n_masks} RLE masks; latency "
         f"p50 {lat['p50']:.2f} ms, p99 {lat['p99']:.2f} ms over {lat['n']} requests")
 
 
@@ -187,6 +233,217 @@ def phase_throughput(model, cfg, dev, rng, smi):
     ms = cuda_ms(lambda: model.detect_batch(images), iters=10, warmup=3)
     log(f"[throughput] detect_batch B=128 bf16 (uint8 input on device): {ms:.3f} ms/batch, "
         f"{128e3 / ms:.1f} img/s, peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2**20:.0f} MiB on {smi} (recorded, not claimed)")
+    return ms
+
+
+# ---- phases 7-11: the int8 path --------------------------------------------
+
+
+def phase_build_int8(pending):
+    """Join the parallel nvcc builds of K1 and K3; print seconds and ptxas."""
+    for name, fut in pending.items():
+        lib, seconds = fut.result()
+        _build.load(name)
+        log(f"[build] {lib.name} in {seconds:.1f} s; nvcc: "
+            + lib.with_suffix(".log").read_text().strip().replace("\n", " | "))
+
+
+def timed_build(name):
+    t0 = time.perf_counter()
+    lib = _build.build(name)
+    return lib, time.perf_counter() - t0
+
+
+def ds_operands(rng, dev, b, h, w, c, o):
+    """Random K1 operands whose activations spread over relu6's range."""
+    t = lambda a: torch.as_tensor(a, device=dev)   # noqa: E731
+    x = t(rng.integers(-127, 128, (b, h, w, c), dtype=np.int8))
+    kdw = t(rng.integers(-127, 128, (9, c), dtype=np.int8))
+    wpw = t(rng.integers(-127, 128, (c, o), dtype=np.int8))
+    dwsb = t(np.stack([rng.uniform(0.5, 1.5, c) * 2.0 / 16129,
+                       rng.normal(0, 0.5, c)]).astype(np.float32))
+    pwsb = t(np.stack([rng.uniform(0.5, 1.5, o) * 2.0 / (np.sqrt(c) * 4400),
+                       rng.normal(0, 0.5, o)]).astype(np.float32))
+    return x, kdw, dwsb, wpw, pwsb
+
+
+def check_k1(rng, dev, shapes, b, tag):
+    """K1 vs its plain version at each (H, W, C, O) of `shapes`; returns
+    (max |kernel - plain| over all, kernel ms, plain ms summed over the
+    list, i.e. one trunk's K1 calls)."""
+    err, ms, plain_ms = 0.0, 0.0, 0.0
+    timed = {}
+    for h, w, c, o, int8_out in shapes:
+        if (h, w, c, o, int8_out) not in timed:
+            args = ds_operands(rng, dev, b, h, w, c, o)
+            a_pw, s_out = 6.0 / 127, (6.0 / 127 if int8_out else 0.0)
+            got = fused_ds_block(*args, a_pw=a_pw, s_out=s_out)
+            want = fused_ds_block_reference(*args, a_pw=a_pw, s_out=s_out)
+            torch.cuda.synchronize()
+            if int8_out:
+                d = (got.int() - want.int()).abs().max().item()
+                ok = d == 0
+                spread = ((want > 0) & (want < 127)).float().mean().item()
+            else:
+                d = (got - want).abs().max().item()
+                ok = torch.allclose(got, want, rtol=1e-6, atol=0.0)
+                spread = ((want > 0) & (want < 6)).float().mean().item()
+            log(f"[kernel] K1 {tag} B={b} {h}x{w} {c}->{o} {'int8' if int8_out else 'f32'}: "
+                f"max|kernel-plain| = {d} ({'bit-equal required' if int8_out else 'rtol 1e-6'}), "
+                f"{spread:.3f} of outputs inside the clip range")
+            if not (ok and spread > 0.05):
+                raise AssertionError(f"K1 disagrees with its plain version at {h}x{w} {c}->{o}")
+            err = max(err, float(d))
+            kernel = lambda: fused_ds_block(*args, a_pw=a_pw, s_out=s_out)             # noqa: E731
+            plain = lambda: fused_ds_block_reference(*args, a_pw=a_pw, s_out=s_out)   # noqa: E731
+            p1, k1, k2, p2 = (cuda_ms(plain, 10, 2), cuda_ms(kernel, 20, 3),
+                              cuda_ms(kernel, 20, 3), cuda_ms(plain, 10, 2))
+            timed[(h, w, c, o, int8_out)] = ((k1 + k2) / 2, (p1 + p2) / 2)
+            log(f"[kernel] K1 {tag} B={b} {h}x{w} {c}->{o}: kernel {(k1 + k2) / 2 * 1e3:.1f} us "
+                f"({k1 * 1e3:.1f}, {k2 * 1e3:.1f}), plain {(p1 + p2) / 2 * 1e3:.1f} us "
+                f"({p1 * 1e3:.1f}, {p2 * 1e3:.1f})")
+        ms += timed[(h, w, c, o, int8_out)][0]
+        plain_ms += timed[(h, w, c, o, int8_out)][1]
+    return err, ms, plain_ms
+
+
+def mask_agreement(got, ref):
+    """The bounds of tests/test_pallas_mask.py; returns the three numbers."""
+    err = (got - ref).abs()
+    decided = (ref - 0.5).abs() > 0.05
+    agree = ((got >= 0.5) == (ref >= 0.5))[decided].float().mean().item()
+    return err.mean().item(), (err > 0.05).float().mean().item(), agree, err.max().item()
+
+
+def check_k3(rng, dev, det, cfg, b, k, tag, time_it=False):
+    """K3 vs its plain version on the detector's packed weights and trunk
+    fmap, random boxes (two run off the map) and classes."""
+    images = torch.as_tensor((rng.random((b, *cfg.IMAGE_SHAPE)) * 255).astype(np.uint8),
+                             device=dev)
+    with torch.inference_mode():
+        fmap = det.trunk(images.float() / 255.0)[1]
+    w = weights_to(pack_mask_weights(det.graph, cfg.NUM_CLASSES), dev)
+    boxes = torch.as_tensor(random_boxes(rng, b, k), device=dev)
+    classes = torch.as_tensor(rng.integers(0, cfg.NUM_CLASSES, (b, k)), dtype=torch.int32,
+                              device=dev)
+    pool, nc = cfg.MASK_POOL_SIZE, cfg.NUM_CLASSES
+    got = fused_mask_branch(fmap, boxes, classes, w, pool, nc)
+    want = fused_mask_branch_reference(fmap, boxes, classes, w, pool, nc)
+    torch.cuda.synchronize()
+    mean, share, agree, worst = mask_agreement(got, want)
+    decided = ((want - 0.5).abs() > 0.05).float().mean().item()
+    log(f"[kernel] K3 {tag} B={b} K={k} {tuple(fmap.shape[1:])} nc={nc}: mean|d| {mean:.2e} "
+        f"(< 5e-3), share |d|>0.05 {share:.2e} (< 5e-3), 0.5-agreement {agree:.6f} (> 0.995) "
+        f"on the {decided:.3f} decided pixels; max|d| {worst:.3e}")
+    if not (torch.isfinite(got).all() and mean < 5e-3 and share < 5e-3 and agree > 0.995):
+        raise AssertionError(f"K3 disagrees with its plain version ({tag}, K={k})")
+    if not time_it:
+        return worst, None, None
+    kernel = lambda: fused_mask_branch(fmap, boxes, classes, w, pool, nc)             # noqa: E731
+    plain = lambda: fused_mask_branch_reference(fmap, boxes, classes, w, pool, nc)    # noqa: E731
+    p1, k1, k2, p2 = (cuda_ms(plain, 5, 1), cuda_ms(kernel, 10, 2), cuda_ms(kernel, 10, 2),
+                      cuda_ms(plain, 5, 1))
+    rois = b * k
+    log(f"[kernel] K3 {tag} B={b} K={k}: kernel {(k1 + k2) / 2:.3f} ms ({k1:.3f}, {k2:.3f}), "
+        f"plain {(p1 + p2) / 2:.3f} ms ({p1:.3f}, {p2:.3f}); {rois} ROIs, "
+        f"{0.52 * rois / ((k1 + k2) / 2):.1f} T int8 MAC/s (0.52 G MAC per ROI at 224²)")
+    return worst, (k1 + k2) / 2, (p1 + p2) / 2
+
+
+def quantized_model(cfg, dev):
+    """The seeded model of `cfg`, quantized on 8 seeded calibration images
+    (as bench.py calibrates)."""
+    model = MaskYOLO("inference", cfg, seed=SEED, device=dev)
+    calib = np.random.RandomState(1).rand(8, *cfg.IMAGE_SHAPE).astype(np.float32)
+    t0 = time.perf_counter()
+    model.quantize(calib)
+    torch.cuda.synchronize()
+    log(f"[int8] {type(cfg).__name__}: quantize (BN fold, calibration on 8 images, int8 "
+        f"weights) in {time.perf_counter() - t0:.1f} s")
+    return model
+
+
+def phase_kernels_int8(rng, dev, model224, cfg224):
+    """K1 and K3 vs plain at the 224² slice's shapes and at 416²."""
+    k1 = check_k1(rng, dev, DS_224, BATCH, "224")
+    check_k1(rng, dev, DS_416, 4, "416")
+    k3 = check_k3(rng, dev, model224._qdet, cfg224, BATCH, cfg224.DETECTION_MAX_INSTANCES,
+                  "224", time_it=True)
+    check_k3(rng, dev, model224._qdet, cfg224, 3, 47, "224")   # a prime K, ragged M
+    cfg416 = Coco416Config()
+    model416 = quantized_model(cfg416, dev)
+    k3_416 = check_k3(rng, dev, model416._qdet, cfg416, 3, cfg416.MASK_TOP_K, "416")
+    del model416
+    torch.cuda.empty_cache()
+    return k1, (max(k3[0], k3_416[0]), k3[1], k3[2])
+
+
+def phase_int8_slice(model, float_model, cfg, images, counts):
+    """detect_batch on the int8 path with K1 and K3, exact launch counts,
+    then the same detector's chained layers (K2 crop) on the same images."""
+    out = run_main_path(lambda: model.detect_batch(images), counts,
+                        ("fused_ds_block", "fused_mask_branch"))
+    n1, n3, n2 = (counts["fused_ds_block"][-1], counts["fused_mask_branch"][-1],
+                  counts["crop_rois"][-1])
+    if (n1, n3, n2) != (K1_LAUNCHES, K3_LAUNCHES, 0):
+        raise AssertionError(f"launches K1 {n1}, K3 {n3}, K2 {n2}; expected "
+                             f"{K1_LAUNCHES}, {K3_LAUNCHES}, 0")
+    k, (h, w) = cfg.DETECTION_MAX_INSTANCES, cfg.IMAGE_SHAPE[:2]
+    if tuple(out["masks"].shape) != (BATCH, k, h, w) or out["masks"].dtype != torch.bool:
+        raise AssertionError(f"masks {tuple(out['masks'].shape)} {out['masks'].dtype}")
+    if not (torch.isfinite(out["scores"]).all() and torch.isfinite(out["boxes"]).all()):
+        raise AssertionError("non-finite int8 scores or boxes")
+    x = torch.as_tensor(images, device=out["boxes"].device)
+    with torch.inference_mode():
+        for k_ in KERNELS.values():
+            k_.launches = 0
+        chained = model._qdet.detect_outputs(x, fused_mask=False, fused_ds=False)
+        torch.cuda.synchronize()
+        if (fused_ds_block.launches, fused_mask_branch.launches) != (0, 0) \
+                or crop_rois.launches != 1:
+            raise AssertionError("the chained comparison did not run the chained layers")
+    for key in ("boxes", "classes", "scores", "valid"):
+        if not torch.equal(out[key], chained[key]):
+            raise AssertionError(f"{key} differ between the fused and the chained int8 path")
+    agree = (out["masks"] == chained["masks"]).float().mean().item()
+    log(f"[int8] detect_batch B={BATCH}: {int(out['valid'].sum())} valid detections, "
+        f"{int(out['masks'].sum())} mask pixels; launches K1 {n1}, K3 {n3}, K2 {n2}; "
+        f"fused vs chained: boxes, classes, scores, valid identical, masks agree on "
+        f"{agree:.6f} of pixels (limit {MASK_AGREE})")
+    if agree < MASK_AGREE:
+        raise AssertionError("fused and chained int8 masks disagree")
+    ref = float_model.detect_batch(images)
+    matched = total = 0
+    for b in range(BATCH):
+        for j in torch.nonzero(out["valid"][b]).flatten().tolist():
+            total += 1
+            same = ref["valid"][b] & (ref["classes"][b] == out["classes"][b, j])
+            bx, rb = out["boxes"][b, j], ref["boxes"][b]
+            ix = (torch.minimum(bx[2], rb[:, 2]) - torch.maximum(bx[0], rb[:, 0])).clamp(min=0)
+            iy = (torch.minimum(bx[3], rb[:, 3]) - torch.maximum(bx[1], rb[:, 1])).clamp(min=0)
+            inter = ix * iy
+            union = ((bx[2] - bx[0]) * (bx[3] - bx[1])
+                     + (rb[:, 2] - rb[:, 0]) * (rb[:, 3] - rb[:, 1]) - inter)
+            matched += int((same & (inter / union.clamp(min=1e-9) >= 0.5)).any())
+    log(f"[int8] {matched} of {total} valid int8 detections match a bf16 float-path "
+        f"detection (same class, IoU >= 0.5; recorded only, random weights)")
+
+
+def phase_int8_throughput(model, cfg, dev, rng, smi, bf16_ms):
+    images = torch.as_tensor((rng.random((128, *cfg.IMAGE_SHAPE)) * 255).astype(np.uint8),
+                             device=dev)
+    det = model._qdet
+    fused = lambda: det.detect_outputs(images, fused_mask=True, fused_ds=True)      # noqa: E731
+    chained = lambda: det.detect_outputs(images, fused_mask=False, fused_ds=False)  # noqa: E731
+    torch.cuda.reset_peak_memory_stats()
+    f1, c1, c2, f2 = (cuda_ms(fused, 5, 2), cuda_ms(chained, 5, 2), cuda_ms(chained, 5, 2),
+                      cuda_ms(fused, 5, 2))
+    f, c = (f1 + f2) / 2, (c1 + c2) / 2
+    log(f"[throughput] int8 detect_batch B=128 (uint8 input on device): fused K1+K3 "
+        f"{f:.3f} ms/batch ({f1:.3f}, {f2:.3f}), {128e3 / f:.1f} img/s; chained "
+        f"{c:.3f} ms/batch ({c1:.3f}, {c2:.3f}), {128e3 / c:.1f} img/s; bf16 float path "
+        f"{bf16_ms:.3f} ms/batch (phase 6); peak memory "
         f"{torch.cuda.max_memory_allocated() / 2**20:.0f} MiB on {smi} (recorded, not claimed)")
 
 
@@ -203,6 +460,10 @@ def main() -> int:
     log(f"[device] {smi}; torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"{torch.cuda.device_count()} device(s); TF32 off for cuDNN and matmul")
 
+    # K1 and K3 compile (one nvcc each, in parallel) while phases 2-6 run
+    pool = ThreadPoolExecutor(max_workers=2)
+    pending = {name: pool.submit(timed_build, name)
+               for name in ("fused_ds_block", "fused_mask_branch")}
     t0 = time.perf_counter()
     lib = _build.build("crop_rois")
     _build.load("crop_rois")
@@ -213,11 +474,23 @@ def main() -> int:
     kernel = phase_kernel(dev, rng)
 
     images = (rng.random((BATCH, *ShapesConfig.IMAGE_SHAPE)) * 255).astype(np.uint8)
-    counts = []
+    counts = {}
     model, cfg = phase_slice("bfloat16", dev, images, counts)
     phase_slice("float32", dev, images, counts)
     phase_serve(model, cfg, rng, counts)
-    phase_throughput(model, cfg, dev, rng, smi)
+    bf16_ms = phase_throughput(model, cfg, dev, rng, smi)
+    crop_launches = sum(counts["crop_rois"])
+
+    phase_build_int8(pending)
+    pool.shutdown()
+    cfg8 = Int8Config()
+    model8 = quantized_model(cfg8, dev)
+    k1, k3 = phase_kernels_int8(rng, dev, model8, cfg8)
+    counts = {}
+    phase_int8_slice(model8, model, cfg8, images, counts)
+    phase_serve(model8, cfg8, rng, counts, n=16, expect=("fused_ds_block", "fused_mask_branch"),
+                tag="serve int8")
+    phase_int8_throughput(model8, cfg8, dev, rng, smi, bf16_ms)
 
     err, ms, plain_ms = kernel[torch.bfloat16]
     print(smi)
@@ -225,7 +498,17 @@ def main() -> int:
         "name": "crop_rois", "route": "cuda",
         "source": "mask_yolo_tpu_torch/csrc/crop_rois.cu",
         "replaces": "mask_yolo_tpu/ops/pallas_crop.py:92",
-        "launches": sum(counts), "max_abs_err": err, "ms": ms, "plain_ms": plain_ms}]}))
+        "launches": crop_launches, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms}, {
+        "name": "fused_ds_block", "route": "cuda",
+        "source": "mask_yolo_tpu_torch/csrc/fused_ds_block.cu",
+        "replaces": "mask_yolo_tpu/ops/pallas_ds.py:92",
+        "launches": sum(counts["fused_ds_block"]), "max_abs_err": k1[0], "ms": k1[1],
+        "plain_ms": k1[2]}, {
+        "name": "fused_mask_branch", "route": "cuda",
+        "source": "mask_yolo_tpu_torch/csrc/fused_mask_branch.cu",
+        "replaces": "mask_yolo_tpu/ops/pallas_mask.py:233",
+        "launches": sum(counts["fused_mask_branch"]), "max_abs_err": k3[0], "ms": k3[1],
+        "plain_ms": k3[2]}]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

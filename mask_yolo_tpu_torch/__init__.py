@@ -7,9 +7,12 @@ functions keep the JAX package's layouts (images [B, H, W, 3], grid
 normalized) so parity tests compare like with like.
 
 Ported so far: the float inference path (`MaskYOLO(mode="inference")
-.detect / .detect_batch`) and the serving executor. The bilinear ROI crop on
-that path runs as a hand-written CUDA kernel on GPU tensors
-(`ops/roi_crop.py`, `csrc/crop_rois.cu`).
+.detect / .detect_batch`), the int8 detect path (`MaskYOLO.quantize`,
+`quant.py`) and the serving executor. Three hand-written CUDA kernels run on
+GPU tensors: the ROI crop (`ops/roi_crop.py`, `csrc/crop_rois.cu`), the
+fused int8 depthwise-separable block (`ops/ds_block.py`,
+`csrc/fused_ds_block.cu`) and the fused int8 mask branch
+(`ops/mask_fused.py`, `csrc/fused_mask_branch.cu`).
 """
 
 from .config import Config, CocoStyleConfig

@@ -228,6 +228,13 @@ class Config:
     # Requires QUANT_DW_INT8; see docs/PERFORMANCE.md for measurements.
     QUANT_FUSED_DS = False
 
+    # int8 detect path: run the whole mask branch (crop, four int8 3×3
+    # convs, the deconv, the class conv, sigmoid and class select) as one
+    # fused kernel call (ops/mask_fused.py). The counterpart of the JAX
+    # package's QuantizedDetector.detect_outputs(use_pallas=...), whose
+    # default is off.
+    QUANT_FUSED_MASK = False
+
     # int8-PTQ: per-INPUT-channel activation scales. Each quantized conv's
     # input is quantized with one scale per channel (calibrated per-channel
     # absmax); the scales fold into the already-per-output-channel weight

@@ -1,0 +1,122 @@
+"""The fused int8 depthwise-separable block: a hand-written CUDA kernel on GPU
+tensors.
+
+`fused_ds_block` replaces the TPU kernel
+`mask_yolo_tpu/ops/pallas_ds.py::fused_ds_block` (K1). On a CUDA tensor it
+launches `csrc/fused_ds_block.cu` or raises; on a CPU tensor it runs the
+plain version `fused_ds_block_reference`. The plain version is the kernel's
+reference, never its fallback: no path leads from a CUDA tensor to it.
+
+One stride-1 block, int8 in, int8 (or f32) out:
+  1. 3×3 depthwise conv, nine int8 taps accumulated in int32, zero padding;
+  2. ·dwsb[0] + dwsb[1], relu6, requantize to int8 at `a_pw`;
+  3. [pixels, C] × [C, O] int8 GEMM accumulated in int32;
+  4. ·pwsb[0] + pwsb[1], relu6, then int8 at `s_out`, or f32 when s_out = 0.
+The arithmetic is the chained int8 path's (quant.run_layer_int8 twice), bit
+for bit: requantize as round_half_even(y · (f32(1) / f32(scale))). The TPU
+kernel takes its inverse in f64 (`pallas_ds.py:122`); the port uses the
+chained path's f32 form.
+
+`fused_ds_block.launches` counts kernel launches (CPU calls do not count).
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from . import _build
+from .int8 import int_mm, inv_scale, quantize
+
+
+def pack_ds_pair(dw_layer, pw_layer, s_in: float):
+    """quant.Layer pair → the kernel's operands (numpy):
+    kdw [9, C] int8 taps in (di, dj) order, dwsb [2, C] f32 =
+    (dw.w_scale · s_in, dw.bias), wpw [C, O] int8, pwsb [2, O] f32 =
+    (pw.w_scale · pw.a_scale, pw.bias). s_in: the int8 input's scale."""
+    assert dw_layer.kind == "dw" and dw_layer.strides == (1, 1)
+    assert dw_layer.quantize and dw_layer.w_q is not None
+    assert pw_layer.kind == "conv" and pw_layer.w_q is not None
+    assert dw_layer.act == "relu6" and pw_layer.act == "relu6"
+    c = dw_layer.w_q.shape[-1]
+    kdw = np.ascontiguousarray(np.asarray(dw_layer.w_q).reshape(9, c))
+    dwsb = np.stack([np.asarray(dw_layer.w_scale, np.float32) * np.float32(s_in),
+                     np.asarray(dw_layer.bias, np.float32)])
+    wpw = np.ascontiguousarray(np.asarray(pw_layer.w_q).reshape(c, -1))
+    pwsb = np.stack([np.asarray(pw_layer.w_scale, np.float32) * np.float32(pw_layer.a_scale),
+                     np.asarray(pw_layer.bias, np.float32)])
+    return kdw, dwsb, wpw, pwsb
+
+
+def fused_ds_block_reference(x_q, kdw, dwsb, wpw, pwsb, a_pw: float, s_out: float = 0.0):
+    """Plain PyTorch version of the kernel, on any device."""
+    b, h, w, c = x_q.shape
+    xp = F.pad(x_q, (0, 0, 1, 1, 1, 1)).to(torch.int32)
+    taps = kdw.to(torch.int32)
+    acc = xp[:, 0:h, 0:w] * taps[0]
+    for t in range(1, 9):
+        di, dj = divmod(t, 3)
+        acc = acc + xp[:, di:di + h, dj:dj + w] * taps[t]
+    y = torch.clamp(acc.float() * dwsb[0] + dwsb[1], 0.0, 6.0)
+    q = quantize(y, a_pw)
+    acc2 = int_mm(q.reshape(-1, c), wpw).reshape(b, h, w, -1)
+    y2 = torch.clamp(acc2.float() * pwsb[0] + pwsb[1], 0.0, 6.0)
+    return quantize(y2, s_out) if s_out else y2
+
+
+def _kernel():
+    fn = _build.load("fused_ds_block").fused_ds_block
+    # x_q, kdw, dwsb, wpw, pwsb, out, B, H, W, C, O, inv_a_pw, inv_s_out, stream
+    fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 5
+                   + [ctypes.c_float] * 2 + [ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def fused_ds_block(x_q, kdw, dwsb, wpw, pwsb, a_pw: float, s_out: float = 0.0):
+    """Fused stride-1 depthwise-separable block (operands of pack_ds_pair,
+    as tensors on one device).
+
+    x_q: [B, H, W, C] int8 at the depthwise layer's input scale (folded into
+    dwsb[0]). a_pw: the pointwise layer's input scale. s_out: output scale,
+    0 for an f32 output. Returns [B, H, W, O] int8 (s_out > 0) or f32."""
+    if x_q.dim() != 4 or x_q.dtype != torch.int8:
+        raise TypeError(f"x_q must be int8 [B, H, W, C], got {x_q.dtype} {tuple(x_q.shape)}")
+    b, h, w, c = x_q.shape
+    o = wpw.shape[-1] if wpw.dim() == 2 else -1
+    expect = {"kdw": (kdw, (9, c), torch.int8), "dwsb": (dwsb, (2, c), torch.float32),
+              "wpw": (wpw, (c, o), torch.int8), "pwsb": (pwsb, (2, o), torch.float32)}
+    for name, (t, shape, dtype) in expect.items():
+        if tuple(t.shape) != shape or t.dtype != dtype:
+            raise ValueError(f"{name}: expected {dtype} {shape}, got {t.dtype} {tuple(t.shape)}")
+        if t.device != x_q.device:
+            raise ValueError(f"{name} on {t.device} but x_q on {x_q.device}")
+    if not a_pw > 0.0 or s_out < 0.0:
+        raise ValueError(f"need a_pw > 0 and s_out >= 0, got {a_pw}, {s_out}")
+    if x_q.device.type == "cpu":
+        return fused_ds_block_reference(x_q, kdw, dwsb, wpw, pwsb, a_pw, s_out)
+    if x_q.device.type != "cuda":
+        raise ValueError(f"fused_ds_block runs on cpu or cuda tensors, got {x_q.device}")
+    if c % 32 or o % 16:
+        raise ValueError(f"the kernel needs C % 32 == 0 and O % 16 == 0, got C={c}, O={o}")
+    if not all(t.is_contiguous() for t in (x_q, kdw, dwsb, wpw, pwsb)):
+        raise ValueError("fused_ds_block needs contiguous operands")
+    out = torch.empty((b, h, w, o), dtype=torch.int8 if s_out else torch.float32,
+                      device=x_q.device)
+    if out.numel() == 0:
+        return out
+    with torch.cuda.device(x_q.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = _kernel()(x_q.data_ptr(), kdw.data_ptr(), dwsb.data_ptr(), wpw.data_ptr(),
+                       pwsb.data_ptr(), out.data_ptr(), b, h, w, c, o,
+                       inv_scale(a_pw), inv_scale(s_out) if s_out else 0.0, stream)
+    if rc != 0:
+        raise RuntimeError(f"fused_ds_block kernel launch failed with CUDA error {rc}")
+    fused_ds_block.launches += 1
+    return out
+
+
+fused_ds_block.launches = 0

@@ -1,0 +1,49 @@
+"""Exact int8 arithmetic shared by the int8 path (quant.py) and the plain
+versions of its kernels (ds_block.py, mask_fused.py).
+
+`quantize` is `quant._quantize_act` of the JAX package bit for bit:
+inv = f32(1) / f32(scale), then round half to even (`torch.round`, like
+`jnp.round`), then clip to ±127. `int_mm` is an int8 matrix product with
+int32 accumulation, exact on every device.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+
+def inv_scale(scale) -> float:
+    """f32(1) / f32(scale), as a Python float (exact in f32)."""
+    return float(np.float32(1.0) / np.float32(scale))
+
+
+def quantize(x, scale):
+    """f32 tensor → int8 at a per-tensor `scale`."""
+    return torch.clamp(torch.round(x * inv_scale(scale)), -127, 127).to(torch.int8)
+
+
+def _round8(n: int) -> int:
+    return -(-n // 8) * 8
+
+
+def int_mm(a, b):
+    """int8 [M, K] @ int8 [K, N] → int32 [M, N] through `torch._int_mm`.
+
+    On CUDA `_int_mm` needs M > 16 and K, N multiples of 8; the operands are
+    zero-padded to that on every device (zero rows and columns add exact
+    zeros), which covers the stem (K = 27) and `conv_23` (N = 3·(5+C)).
+    cuBLASLt's int8 GEMM also wants `b` column-major there."""
+    m, k = a.shape
+    n = b.shape[1]
+    kp, n8, mp = _round8(k), _round8(n), max(m, 17)
+    if kp != k:
+        a = F.pad(a, (0, kp - k))
+        b = F.pad(b, (0, 0, 0, kp - k))
+    if n8 != n:
+        b = F.pad(b, (0, n8 - n))
+    if mp != m:
+        a = F.pad(a, (0, 0, 0, mp - m))
+    b = b.t().contiguous().t() if b.is_cuda else b.contiguous()
+    return torch._int_mm(a.contiguous(), b)[:m, :n]

@@ -55,9 +55,19 @@ def detect_outputs(net, images, config):
     return detect_from_callables(net.trunk, net.mask_branch, images, config)
 
 
-def detect_from_callables(trunk, mask_branch, images, config):
+def detect_from_callables(trunk, mask_branch, images, config,
+                          score_threshold=None, fused_mask=None):
     """detect_outputs with pluggable trunk (images → (grid, fmap)) and mask
-    branch ((rois, fmap) → [B, k, mh, mw, C] sigmoid masks) executors."""
+    branch ((rois, fmap) → [B, k, mh, mw, C] sigmoid masks) executors, shared
+    by the float path and the int8 path (quant.py).
+
+    score_threshold: a detection is valid above it (default OBJ_THRESHOLD).
+    fused_mask: optional (rois, fmap, classes) → [B, k, mh, mw] sigmoid masks
+    already selected by each ROI's class (the fused mask kernel,
+    ops/mask_fused.py); when given it replaces mask_branch and the class
+    select."""
+    if score_threshold is None:
+        score_threshold = config.OBJ_THRESHOLD
     k = config.DETECTION_MAX_INSTANCES
     h, w = config.IMAGE_SHAPE[:2]
 
@@ -73,7 +83,7 @@ def detect_from_callables(trunk, mask_branch, images, config):
     top_scores, idx = _top_k(torch.where(area_ok, scores, -1.0), k)
     top_boxes = _take(boxes, idx)
     top_classes = _take(classes, idx)
-    valid = top_scores > config.OBJ_THRESHOLD
+    valid = top_scores > score_threshold
 
     # the reference's second-stage class-aware NMS, in index (= score) order
     det_nms = float(getattr(config, "DETECTION_NMS_THRESHOLD", 0.7))
@@ -95,10 +105,13 @@ def detect_from_callables(trunk, mask_branch, images, config):
     mask_classes = top_classes[:, :kp]
 
     # mask branch on the kp survivors only, then each ROI's own class
-    pred_masks = mask_branch(mask_boxes, fmap)                 # [B, kp, mh, mw, C]
-    sel = mask_classes.long()[:, :, None, None, None].expand(
-        pred_masks.shape[:-1] + (1,))
-    sel_masks = torch.gather(pred_masks, -1, sel)[..., 0]      # [B, kp, mh, mw]
+    if fused_mask is not None:
+        sel_masks = fused_mask(mask_boxes, fmap, mask_classes)  # [B, kp, mh, mw]
+    else:
+        pred_masks = mask_branch(mask_boxes, fmap)             # [B, kp, mh, mw, C]
+        sel = mask_classes.long()[:, :, None, None, None].expand(
+            pred_masks.shape[:-1] + (1,))
+        sel_masks = torch.gather(pred_masks, -1, sel)[..., 0]  # [B, kp, mh, mw]
 
     # paste onto the image canvas and threshold at 0.5; bf16 configs paste
     # in bf16 (ops/roi_align.paste_masks)

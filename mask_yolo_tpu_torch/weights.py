@@ -20,6 +20,11 @@ y[2i+di, 2j+dj, o] = Σ_c x[i, j, c]·W[1-di, 1-dj, c, o], while torch's
 conv_transpose2d uses W[c, o, di, dj]. The unflipped mapping is off by
 O(1) on non-degenerate activations.
 
+`to_jax_variables` is the exact inverse (the int8 path folds the weights
+from a flax-layout f32 host copy, `quant.build_layer_graph`), and
+`from_jax_graph` carries a calibrated, quantized layer graph of the JAX
+package's `quant` across field by field.
+
 Only numpy is needed here; the arrays are host copies
 (`jax.device_get(variables)` on the JAX side).
 """
@@ -79,3 +84,71 @@ def from_jax_variables(variables, expected_keys) -> dict:
         raise KeyError(f"weight bridge mismatch: torch keys unfilled {unfilled}, "
                        f"flax leaves with no torch key {unmapped}")
     return state
+
+
+def unconvert_kernel(module: str, weight: np.ndarray) -> np.ndarray:
+    """The inverse of `convert_kernel`: a torch weight as the flax kernel."""
+    if weight.ndim != 4:
+        raise ValueError(f"{module}: expected a 4-D weight, got {weight.shape}")
+    if module == "mask_deconv":
+        return np.ascontiguousarray(weight.transpose(2, 3, 0, 1)[::-1, ::-1])
+    return np.ascontiguousarray(weight.transpose(2, 3, 1, 0))
+
+
+def to_jax_variables(state_dict) -> dict:
+    """A torch state_dict (numpy arrays or CPU tensors) as the flax variable
+    tree `{"params": ..., "batch_stats": ...}` of the same network: the exact
+    inverse of `from_jax_variables`. A 4-D `weight` is a conv kernel, a 1-D
+    one a BatchNorm scale; `num_batches_tracked` has no flax leaf."""
+    variables = {"params": {}, "batch_stats": {}}
+    for key, value in state_dict.items():
+        *modules, name = key.split(".")
+        if name == "num_batches_tracked":
+            continue
+        value = np.asarray(value.detach().cpu() if hasattr(value, "detach") else value)
+        if name == "weight":
+            if value.ndim == 4:
+                collection, leaf = "params", "kernel"
+                value = unconvert_kernel(modules[-1], value)
+            else:
+                collection, leaf = "params", "scale"
+        elif name == "bias":
+            collection, leaf = "params", "bias"
+        elif name in ("running_mean", "running_var"):
+            collection, leaf = "batch_stats", name[len("running_"):]
+        else:
+            raise KeyError(f"unmapped torch key {key!r}")
+        node = variables[collection]
+        for m in modules:
+            node = node.setdefault(m, {})
+        node[leaf] = value
+    return variables
+
+
+_LAYER_FIELDS = ("name", "kind", "kernel", "bias", "strides", "act", "groups",
+                 "quantize", "w_q", "w_scale", "a_scale", "act_folded",
+                 "bias_corr")
+
+
+def from_jax_graph(graph) -> dict:
+    """A layer graph of the JAX package's `quant` ({part: [Layer] or None},
+    calibrated and quantized) as the port's `quant.Layer` graph, field by
+    field. Arrays become numpy; a scalar activation scale stays a Python
+    float, as `calibrate` leaves it (the fused-block test needs a float)."""
+    from .quant import Layer
+
+    def carry(layer):
+        fields = {}
+        for f in _LAYER_FIELDS:
+            v = getattr(layer, f)
+            if f in ("kernel", "bias", "w_q", "w_scale", "bias_corr") and v is not None:
+                v = np.asarray(v)
+            elif f == "a_scale":
+                v = np.asarray(v, np.float32) if np.ndim(v) else float(v)
+            elif f == "strides":
+                v = tuple(int(s) for s in v)
+            fields[f] = v
+        return Layer(**fields)
+
+    return {part: None if layers is None else [carry(l) for l in layers]
+            for part, layers in graph.items()}

@@ -24,6 +24,17 @@ Phases, each fatal on failure (nothing is caught):
                  same detector's chained layers
  10. serve       BatchingExecutor over the int8 model answers 16 requests
  11. throughput  int8 detect_batch at batch 128, fused and chained (recorded)
+ T1. kernel      the crop kernel's backward (K2 backward) vs its plain version,
+                 f32, at the training shape (B=16, K=32, 28x28x256, P=14) and
+                 at CocoStyleConfig's (B=4, K=128, 52x52x256), with off-map,
+                 zero-area and mirrored boxes; a bf16 fmap with grad raises
+ T2. training    MaskYOLO("training", ShapesConfig widths, f32).train on a
+                 seeded Shapes dataset (64 train, 16 val images) for 2 epochs:
+                 exactly one K2 forward per train and validation step and one
+                 K2 backward per train step, no plain crop on the card;
+                 resume_from the epoch-1 checkpoint restores exactly; 25 steps
+                 on one batch (lr 1e-4) cut the loss below 0.7x; a yolo-mode step; ms per
+                 train step at batch 16 and peak memory (recorded)
 
 The last three lines are the `nvidia-smi` name/power-limit line, a JSON line
 of kernels, and {"ok": true, "device": {...}}. Without a CUDA device the
@@ -33,25 +44,31 @@ script exits 1 and prints no result.
 from __future__ import annotations
 
 import json
+import shutil
 import subprocess
 import sys
 import time
+from pathlib import Path
 from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
 
 from mask_yolo_tpu_torch import CocoStyleConfig, MaskYOLO
-from mask_yolo_tpu_torch.data.shapes import ShapesConfig
-from mask_yolo_tpu_torch.ops import _build
+from mask_yolo_tpu_torch.data.pipeline import BatchGenerator, preload_dataset
+from mask_yolo_tpu_torch.data.prefetch import to_device
+from mask_yolo_tpu_torch.data.shapes import ShapesConfig, ShapesDataset
+from mask_yolo_tpu_torch.ops import _build, roi_crop
 from mask_yolo_tpu_torch.ops.ds_block import fused_ds_block, fused_ds_block_reference
 from mask_yolo_tpu_torch.ops.mask_fused import (fused_mask_branch,
                                                 fused_mask_branch_reference,
                                                 pack_mask_weights, weights_to)
-from mask_yolo_tpu_torch.ops.roi_align import crop_and_resize
-from mask_yolo_tpu_torch.ops.roi_crop import crop_rois
-from mask_yolo_tpu_torch.pipelines import detect_from_callables, images_f32
+from mask_yolo_tpu_torch.ops.roi_align import crop_and_resize, crop_and_resize_backward
+from mask_yolo_tpu_torch.ops.roi_crop import crop_rois, crop_rois_backward
+from mask_yolo_tpu_torch.pipelines import detect_from_callables, images_f32, training_loss
 from mask_yolo_tpu_torch.serve import BatchingExecutor
+from mask_yolo_tpu_torch.train import state as train_state
+from mask_yolo_tpu_torch.train import trainer
 
 SEED = 0
 BATCH = 16
@@ -65,6 +82,15 @@ DS_224 = [(112, 112, 32, 64, True), (56, 56, 64, 128, True), (28, 28, 256, 256, 
 DS_416 = [(208, 208, 32, 64, True), (104, 104, 64, 128, True), (52, 52, 256, 256, True),
           (52, 52, 256, 512, False), (26, 26, 512, 512, True), (13, 13, 1024, 1024, True)]
 K1_LAUNCHES, K3_LAUNCHES = 10, 1   # per int8 detect_batch
+# the K2 backward at the training path's shape and at CocoStyleConfig's
+BWD_SHAPES = [dict(b=16, h=28, w=28, c=256, k=32, pool=14),
+              dict(b=4, h=52, w=52, c=256, k=128, pool=14)]
+BWD_TOL = 1e-5                     # max|kernel - plain| / max|plain|, f32
+# 25 single-batch steps must cut the loss below 0.7x, the JAX package's bound
+# (tests/test_train.py). At lr 1e-4: at ShapesConfig widths Adam at 1e-3 makes
+# the exp-parametrized wh loss oscillate between ~4 and ~6e4 on one batch
+# (the JAX package's yolo-mode test notes the same oscillation)
+OVERFIT_STEPS, OVERFIT_BOUND, OVERFIT_LR = 25, 0.7, 1e-4
 
 
 class Int8Config(ShapesConfig):
@@ -75,6 +101,13 @@ class Int8Config(ShapesConfig):
     QUANT_DW_INT8 = True
     QUANT_FUSED_DS = True
     QUANT_FUSED_MASK = True
+
+
+class TrainConfig(ShapesConfig):
+    """ShapesConfig at its full widths (f32, batch 16, TRAIN_BN, mini-masks,
+    MASK_TRAIN_TOP_ROIS 32), with short epochs."""
+    STEPS_PER_EPOCH = 2
+    VALIDATION_STEPS = 1
 
 
 class Coco416Config(CocoStyleConfig):
@@ -146,8 +179,8 @@ def phase_kernel(dev, rng):
     return results
 
 
-KERNELS = {"crop_rois": crop_rois, "fused_ds_block": fused_ds_block,
-           "fused_mask_branch": fused_mask_branch}
+KERNELS = {"crop_rois": crop_rois, "crop_rois_backward": crop_rois_backward,
+           "fused_ds_block": fused_ds_block, "fused_mask_branch": fused_mask_branch}
 
 
 def run_main_path(fn, counts, expect=("crop_rois",)):
@@ -446,6 +479,181 @@ def phase_int8_throughput(model, cfg, dev, rng, smi, bf16_ms):
         f"{bf16_ms:.3f} ms/batch (phase 6); peak memory "
         f"{torch.cuda.max_memory_allocated() / 2**20:.0f} MiB on {smi} (recorded, not claimed)")
 
+# ---- phases T1-T2: the training path ----------------------------------------
+
+
+def backward_boxes(rng, b, k):
+    """random_boxes plus, in image 0, a zero-area box and a mirrored one
+    (x2 < x1, y2 < y1)."""
+    boxes = random_boxes(rng, b, k)
+    boxes[0, 2] = [0.3, 0.4, 0.3, 0.4]
+    boxes[0, 3] = [0.8, 0.7, 0.2, 0.1]
+    return boxes
+
+
+def phase_train_kernel(dev, rng):
+    """K2 backward vs its plain version; returns (max_abs_err, ms, plain_ms)
+    at the training shape."""
+    result = None
+    for s in BWD_SHAPES:
+        boxes = torch.tensor(backward_boxes(rng, s["b"], s["k"]), device=dev)
+        g = torch.tensor(rng.standard_normal((s["b"], s["k"], s["pool"], s["pool"], s["c"]),
+                                             dtype=np.float32), device=dev)
+        hw = (s["h"], s["w"])
+        got = crop_rois_backward(g, boxes, hw)
+        want = crop_and_resize_backward(g, boxes, hw)
+        torch.cuda.synchronize()
+        err = (got - want).abs().max().item()
+        ratio = err / want.abs().max().item()
+        kernel = lambda: crop_rois_backward(g, boxes, hw)          # noqa: E731
+        plain = lambda: crop_and_resize_backward(g, boxes, hw)     # noqa: E731
+        p1, k1, k2, p2 = cuda_ms(plain, 20), cuda_ms(kernel, 20), cuda_ms(kernel, 20), cuda_ms(plain, 20)
+        tag = f"B={s['b']}, K={s['k']}, {s['h']}x{s['w']}x{s['c']}, P={s['pool']}"
+        log(f"[train-kernel] K2 backward f32 {tag}: max|kernel-plain| = {err:.3e}, / max|plain| "
+            f"= {ratio:.3e} (limit {BWD_TOL}); kernel {(k1 + k2) / 2 * 1e3:.1f} us ({k1 * 1e3:.1f}, "
+            f"{k2 * 1e3:.1f}), plain {(p1 + p2) / 2 * 1e3:.1f} us ({p1 * 1e3:.1f}, {p2 * 1e3:.1f})")
+        if not (torch.isfinite(got).all() and ratio <= BWD_TOL):
+            raise AssertionError(f"the K2 backward disagrees with its plain version ({tag})")
+        if result is None:
+            result = (err, (k1 + k2) / 2, (p1 + p2) / 2)
+    empty = crop_rois_backward(torch.zeros((2, 0, 14, 14, 8), device=dev),
+                               torch.zeros((2, 0, 4), device=dev), (4, 4))
+    if empty.shape != (2, 4, 4, 8) or empty.any():
+        raise AssertionError("the K2 backward of zero ROIs is not a zero map")
+    fmap = torch.zeros((1, 4, 4, 8), dtype=torch.bfloat16, device=dev, requires_grad=True)
+    try:
+        crop_rois(fmap, torch.zeros((1, 2, 4), device=dev), 2)
+    except NotImplementedError as e:
+        log(f"[train-kernel] a bf16 fmap that requires grad raises: {e}")
+    else:
+        raise AssertionError("a bf16 fmap that requires grad went through the crop")
+    return result
+
+
+class PlainCropsOnCuda:
+    """Counts calls of the crop's plain versions on CUDA tensors while
+    active (there must be none on the training path)."""
+
+    def __init__(self):
+        self.calls = 0
+        self.saved = {}
+
+    def __enter__(self):
+        for name in ("crop_and_resize", "crop_and_resize_backward"):
+            fn = self.saved[name] = getattr(roi_crop, name)
+
+            def counted(t, *a, _fn=fn, **kw):
+                self.calls += t.is_cuda
+                return _fn(t, *a, **kw)
+
+            setattr(roi_crop, name, counted)
+        return self
+
+    def __exit__(self, *exc):
+        for name, fn in self.saved.items():
+            setattr(roi_crop, name, fn)
+
+
+def shapes_dataset(count, seed, cfg):
+    ds = ShapesDataset()
+    ds.load_shapes(count, cfg.IMAGE_SHAPE[0], cfg.IMAGE_SHAPE[1], seed=seed)
+    ds.prepare()
+    return ds
+
+
+def snapshot(state):
+    """Host copies of a TrainState's params, BN statistics, moments, counts."""
+    host = lambda d: {k: v.detach().cpu().clone() for k, v in d.items()}   # noqa: E731
+    return {"params": host(state.params), "batch_stats": host(state.batch_stats),
+            "mu": host(state.opt_state["mu"]), "nu": host(state.opt_state["nu"]),
+            "count": state.opt_state["count"], "step": state.step}
+
+
+def phase_train(dev, smi, counts, workdir):
+    """MaskYOLO.train on the card, resume, overfit, a yolo-mode step and the
+    step time. Returns the step's ms."""
+    cfg = TrainConfig()
+    t0 = time.perf_counter()
+    train_ds, val_ds = shapes_dataset(64, SEED, cfg), shapes_dataset(16, SEED + 1, cfg)
+    log(f"[train] Shapes dataset, 64 train and 16 val images at {cfg.IMAGE_SHAPE[0]}^2, in "
+        f"{time.perf_counter() - t0:.1f} s")
+    model = MaskYOLO("training", cfg, model_dir=str(workdir), seed=SEED, device=dev)
+    epoch1 = {}
+    keep = lambda epoch, metrics, val_loss, state: (                         # noqa: E731
+        epoch1.update(snapshot(state)) if epoch == 0 else None)
+    epochs = 2
+    t0 = time.perf_counter()
+    with PlainCropsOnCuda() as plain:
+        run_main_path(lambda: model.train(train_ds, val_ds, 1e-3, epochs=epochs, verbose=False,
+                                          custom_callbacks=[keep]),
+                      counts, ("crop_rois", "crop_rois_backward"))
+    fwd, bwd = counts["crop_rois"][-1], counts["crop_rois_backward"][-1]
+    want = (epochs * (cfg.STEPS_PER_EPOCH + cfg.VALIDATION_STEPS), epochs * cfg.STEPS_PER_EPOCH)
+    history = [json.loads(line) for line in open(workdir / "history.jsonl")]
+    log(f"[train] MaskYOLO.train 2 epochs x {cfg.STEPS_PER_EPOCH} steps + {cfg.VALIDATION_STEPS} "
+        f"val step, batch {cfg.BATCH_SIZE}, f32, in {time.perf_counter() - t0:.1f} s: K2 forward "
+        f"{fwd}, K2 backward {bwd} launches (expected {want[0]}, {want[1]}); plain crops on the "
+        f"card {plain.calls}; loss by epoch {[round(h['loss'], 4) for h in history]}, val_loss "
+        f"{[round(h['val_loss'], 4) for h in history]}")
+    if (fwd, bwd) != want or plain.calls:
+        raise AssertionError("the training path did not run through the K2 kernels as expected")
+    if not all(np.isfinite([h["loss"], h["val_loss"]]).all() for h in history):
+        raise AssertionError("non-finite training or validation loss")
+
+    ckpt = sorted(workdir.glob("saved_model_*_e0001.pt"))[0]
+    fresh = MaskYOLO("training", cfg, model_dir=str(workdir), seed=SEED + 1, device=dev)
+    tx = train_state.make_optimizer(1e-3, cfg, dict(fresh.net.named_parameters()))
+    restored, epoch = train_state.resume_train_state(
+        str(ckpt), train_state.create_train_state(fresh.net, tx), tx)
+    got = snapshot(restored)
+    same = (epoch == 1 and all(got[k] == epoch1[k] for k in ("count", "step"))
+            and all(torch.equal(got[k][n], epoch1[k][n])
+                    for k in ("params", "batch_stats", "mu", "nu") for n in epoch1[k]))
+    log(f"[train] resume_from {ckpt.name}: epoch {epoch}, step {got['step']}, params, BN "
+        f"statistics and Adam moments {'restore exactly' if same else 'DIFFER'}")
+    if not same:
+        raise AssertionError("resume did not restore the epoch-1 state exactly")
+
+    gen = BatchGenerator(preload_dataset(train_ds, cfg), cfg, shuffle=False)
+    batch = to_device(gen[0], dev)
+    model = MaskYOLO("training", cfg, seed=SEED, device=dev)
+    tx = train_state.make_optimizer(OVERFIT_LR, cfg, dict(model.net.named_parameters()))
+    state = train_state.create_train_state(model.net, tx)
+    step = trainer.make_train_step(cfg, tx)
+    losses = [step(state, batch)[1]["loss"] for _ in range(OVERFIT_STEPS)]
+    losses = torch.stack(losses).cpu().numpy()
+    log(f"[train] overfit one batch, {OVERFIT_STEPS} steps at lr {OVERFIT_LR}: loss "
+        f"{losses[0]:.4f} -> {losses[-1]:.4f} (bound < {OVERFIT_BOUND} x first)")
+    if not (np.isfinite(losses).all() and losses[-1] < OVERFIT_BOUND * losses[0]):
+        raise AssertionError("overfitting one batch did not cut the loss enough")
+
+    yolo = MaskYOLO("yolo", cfg, seed=SEED, device=dev)
+    ytx = train_state.make_optimizer(1e-3, cfg, dict(yolo.net.named_parameters()))
+    ystate = train_state.create_train_state(yolo.net, ytx)
+    launches = crop_rois.launches
+    _, ym = trainer.make_train_step(cfg, ytx, "yolo")(ystate, batch)
+    yloss = ym["loss"].item()
+    log(f"[train] yolo-mode step: loss {yloss:.4f}, K2 launches {crop_rois.launches - launches}")
+    if not (np.isfinite(yloss) and ystate.step == 1 and crop_rois.launches == launches):
+        raise AssertionError("the yolo-mode step failed")
+
+    torch.cuda.reset_peak_memory_stats()
+    ms = cuda_ms(lambda: step(state, batch), iters=10, warmup=3)
+    fwd_ms = cuda_ms(lambda: training_loss(state.net, batch, cfg, 1e9),
+                     iters=10, warmup=2)
+    params = state.params
+    loss, _ = training_loss(state.net, batch, cfg, 1e9)
+    grads = dict(zip(tx.keys, torch.autograd.grad(loss, [params[k] for k in tx.keys])))
+    opt_ms = cuda_ms(lambda: tx.apply(params, grads, state.opt_state), iters=10, warmup=2)
+    peak = torch.cuda.max_memory_allocated() / 2**20
+    log(f"[train] train step at batch {cfg.BATCH_SIZE}, {cfg.IMAGE_SHAPE[0]}^2, f32 (TF32 off for "
+        f"cuDNN and matmul): {ms:.3f} ms/step ({cfg.BATCH_SIZE * 1e3 / ms:.1f} img/s); forward "
+        f"with autograd graph {fwd_ms:.3f} ms, optimizer {opt_ms:.3f} ms, so backward ~"
+        f"{ms - fwd_ms - opt_ms:.3f} ms; peak memory {peak:.0f} MiB on {smi} (recorded, not "
+        f"claimed)")
+    return ms
+
+
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -472,6 +680,7 @@ def main() -> int:
 
     rng = np.random.default_rng(SEED)
     kernel = phase_kernel(dev, rng)
+    kernel_bwd = phase_train_kernel(dev, rng)
 
     images = (rng.random((BATCH, *ShapesConfig.IMAGE_SHAPE)) * 255).astype(np.uint8)
     counts = {}
@@ -491,6 +700,17 @@ def main() -> int:
     phase_serve(model8, cfg8, rng, counts, n=16, expect=("fused_ds_block", "fused_mask_branch"),
                 tag="serve int8")
     phase_int8_throughput(model8, cfg8, dev, rng, smi, bf16_ms)
+    del model8
+    torch.cuda.empty_cache()
+
+    workdir = Path(__file__).resolve().parent / "build" / "chip_smoke_train"
+    shutil.rmtree(workdir, ignore_errors=True)
+    train_counts = {}
+    try:
+        phase_train(dev, smi, train_counts, workdir)
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    crop_launches += sum(train_counts["crop_rois"])
 
     err, ms, plain_ms = kernel[torch.bfloat16]
     print(smi)
@@ -499,6 +719,11 @@ def main() -> int:
         "source": "mask_yolo_tpu_torch/csrc/crop_rois.cu",
         "replaces": "mask_yolo_tpu/ops/pallas_crop.py:92",
         "launches": crop_launches, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms}, {
+        "name": "crop_rois_backward", "route": "cuda",
+        "source": "mask_yolo_tpu_torch/csrc/crop_rois.cu",
+        "replaces": "mask_yolo_tpu/ops/pallas_crop.py:92",
+        "launches": sum(train_counts["crop_rois_backward"]), "max_abs_err": kernel_bwd[0],
+        "ms": kernel_bwd[1], "plain_ms": kernel_bwd[2]}, {
         "name": "fused_ds_block", "route": "cuda",
         "source": "mask_yolo_tpu_torch/csrc/fused_ds_block.cu",
         "replaces": "mask_yolo_tpu/ops/pallas_ds.py:92",

@@ -28,6 +28,32 @@
 // Sample coordinates reproduce interp_matrix (ops/roi_align.py) bit for bit
 // in f32: the explicit _rn intrinsics stop nvcc from contracting the
 // multiply-adds into FMAs, which would round differently.
+//
+// Backward (crop_rois_backward_f32): the gradient with respect to the fmap,
+// which the TPU package left to XLA's autodiff of the separable crop
+// (ops/roi_align.py::crop_and_resize). Each output sample (b, k, py, px)
+// adds wy*wx*g[b, k, py, px, :] into its four taps of d_fmap; the boxes get
+// no gradient. Twin: ops/roi_align.py::crop_and_resize_backward.
+//
+//   g      [B, K, P, P, C]  float32
+//   d_fmap [B, H, W, C]     float32, fully written (no zeroing needed)
+//
+// Bound: memory. At the training shape (B=16, K=32, P=14, C=256) g is
+// 102.8 MB and d_fmap 12.8 MB: >= 35 us at 3.35 TB/s. Design: a gather, not
+// an atomic scatter, so the result is the same on every run, as XLA's is.
+// A first small kernel computes the taps of every sample (b, k, p) along x
+// and y once (the same Taps as the forward's, bit for bit) into a scratch
+// buffer the wrapper allocates. Then one block owns one fmap row (b, y) and
+// 64 channels. Its G <= 4 row groups of 64 threads split the sample rows
+// (k, py) between them (busy fmap rows are touched by ~60 sample rows, and
+// one thread walking them all waits on memory ~60 times over). Each group
+// skips the rows whose y taps miss y and reads the P samples of the others
+// (a warp reads 128 contiguous bytes of g per sample, several samples in
+// flight: the px loop is unrolled), accumulating into its own shared-memory
+// slab, in which thread c owns column c. The slabs are then summed in group
+// order: every cell is summed in one fixed order, so the result is the same
+// on every run. Each g row is read by the two blocks of the fmap rows it
+// touches, which run side by side, so the second read mostly hits L2.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -165,9 +191,100 @@ int dispatch(const void* fmap, const void* boxes, void* out, int B, int H, int W
                 : launch<T, 1>(fmap, boxes, out, B, H, W, C, K, P, s);
 }
 
+constexpr int kBwdChannels = 64;  // channels per backward block (threads)
+
+// The taps of one sample along one axis; w0 = w1 = 0 for a sample off the map.
+struct alignas(16) TapRec {
+  int i0, i1;
+  float w0, w1;
+};
+
+// taps[((b*K + k)*P + p)*2 + axis], axis 0 = x, 1 = y.
+__global__ void crop_taps_kernel(const float* __restrict__ boxes, TapRec* __restrict__ taps, int H,
+                                 int W, int n, int P) {
+  const int j = blockIdx.x * blockDim.x + threadIdx.x;  // (b*K + k)*P + p
+  if (j >= n) return;
+  const float* bx = boxes + 4 * (j / P);
+  for (int axis = 0; axis < 2; ++axis) {
+    const Taps t = axis == 0 ? sample(bx[0], bx[2], W, j % P, P) : sample(bx[1], bx[3], H, j % P, P);
+    TapRec r;
+    r.i0 = t.i0;
+    r.i1 = t.i1;
+    r.w0 = t.valid ? t.w0 : 0.f;
+    r.w1 = t.valid ? t.w1 : 0.f;
+    taps[2 * j + axis] = r;
+  }
+}
+
+__global__ void crop_rois_backward_kernel(const float* __restrict__ g,
+                                          const TapRec* __restrict__ taps,
+                                          float* __restrict__ dfmap, int H, int W, int C, int K,
+                                          int P) {
+  extern __shared__ float smem[];  // [G][W][kBwdChannels], one slab per row group
+  const int b = blockIdx.x / H;
+  const int y = blockIdx.x % H;
+  const int t = threadIdx.x;
+  const int grp = threadIdx.y;
+  const int G = blockDim.y;
+  const int c = blockIdx.y * kBwdChannels + t;
+  const bool active = c < C;
+  float* acc = smem + grp * W * kBwdChannels;
+  for (int x = 0; x < W; ++x) acc[x * kBwdChannels + t] = 0.f;
+
+  // group grp takes sample rows i = grp, grp + G, ...; thread t touches only
+  // column t of its own slab
+  const TapRec* btaps = taps + static_cast<size_t>(b) * K * P * 2;
+  for (int i = grp; active && i < K * P; i += G) {  // sample row i = k*P + py
+    const TapRec ty = btaps[2 * i + 1];
+    const float wy = (ty.i0 == y ? ty.w0 : 0.f) + (ty.i1 == y ? ty.w1 : 0.f);
+    if (wy == 0.f) continue;
+    const TapRec* xtaps = btaps + 2 * (i - i % P);  // the sample row's x taps
+    const float* grow = g + (static_cast<size_t>(b) * K * P + i) * P * C + c;
+#pragma unroll 7
+    for (int px = 0; px < P; ++px) {
+      const TapRec tx = xtaps[2 * px];
+      const float v = wy * grow[static_cast<size_t>(px) * C];
+      acc[tx.i0 * kBwdChannels + t] += tx.w0 * v;
+      acc[tx.i1 * kBwdChannels + t] += tx.w1 * v;
+    }
+  }
+  __syncthreads();
+  if (!active) return;
+  // the slabs summed in group order, so the result does not depend on timing
+  float* drow = dfmap + static_cast<size_t>(b * H + y) * W * C + c;
+  for (int x = grp; x < W; x += G) {
+    float sum = 0.f;
+    for (int j = 0; j < G; ++j) sum += smem[(j * W + x) * kBwdChannels + t];
+    drow[static_cast<size_t>(x) * C] = sum;
+  }
+}
+
 }  // namespace
 
 // Plain C interface for ctypes. Returns cudaGetLastError() after the launch.
+
+// taps: scratch of 32 * B * K * P bytes, 16-byte aligned. Returns
+// cudaErrorInvalidValue, launching nothing, for a map so wide that one row
+// group's slab exceeds 48 KB of shared memory (W > 192).
+extern "C" int crop_rois_backward_f32(const void* g, const void* boxes, void* taps, void* dfmap,
+                                      int B, int H, int W, int C, int K, int P, void* stream) {
+  const size_t slab = sizeof(float) * static_cast<size_t>(W) * kBwdChannels;
+  if (slab > 48 * 1024) return static_cast<int>(cudaErrorInvalidValue);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int n = B * K * P;
+  crop_taps_kernel<<<(n + 127) / 128, 128, 0, s>>>(static_cast<const float*>(boxes),
+                                                   static_cast<TapRec*>(taps), H, W, n, P);
+  // up to 4 row groups, as many as 48 KB of shared memory hold
+  int groups = 4;
+  while (groups > 1 && groups * slab > 48 * 1024) --groups;
+  const dim3 grid(static_cast<unsigned>(B) * H, (C + kBwdChannels - 1) / kBwdChannels);
+  const dim3 block(kBwdChannels, groups);
+  crop_rois_backward_kernel<<<grid, block, groups * slab, s>>>(
+      static_cast<const float*>(g), static_cast<const TapRec*>(taps), static_cast<float*>(dfmap),
+      H, W, C, K, P);
+  return static_cast<int>(cudaGetLastError());
+}
+
 extern "C" int crop_rois_f32(const void* fmap, const void* boxes, void* out, int B, int H, int W,
                              int C, int K, int P, void* stream) {
   return dispatch<float>(fmap, boxes, out, B, H, W, C, K, P, stream);

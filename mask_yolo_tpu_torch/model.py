@@ -1,34 +1,56 @@
-"""MaskYOLO — the user-facing class, inference mode only so far.
+"""MaskYOLO — the user-facing class, port of `mask_yolo_tpu/model.py`.
 
-Port of the inference surface of `mask_yolo_tpu/model.py`: the constructor,
-`detect` (one uint8 image → boxes, classes, scores and full-size masks) and
-`detect_batch` (the throughput path), `load_jax_variables` to run the JAX
-package's weights, and `quantize`, which switches `detect`/`detect_batch` to
-the int8 path (quant.py). Training, `infer_yolo`, checkpoints and
-`visualize` come with later slices (ROADMAP Queue 1).
+Modes, as in the JAX package:
+  "training"   `train` the full network (YOLO loss + mask loss);
+  "yolo"       `train` the backbone and YOLO head on the YOLO loss alone;
+  "inference"  `detect` / `detect_batch`, and `quantize` for the int8 path.
+
+Weights: a training or yolo model starts from flax's default initializers
+(LeCun-normal kernels, as the JAX package's `net.init`), drawn from the
+seeded torch generator; an inference model from seeded He-normal kernels,
+which give spread scores and masks for the smoke runs
+(`models/network.py`). `load_jax_variables` loads the JAX package's weights,
+`load_weights` a checkpoint of `train` or `save_weights`.
+
+Training runs in float32, the configs' default COMPUTE_DTYPE: a bf16 network
+holds rounded parameters, and Adam would update those, so bf16 training
+raises until it gets f32 master weights (ROADMAP Queue 1).
 
 The model keeps an f32 host copy of its weights (`_host_state`, a torch
-state_dict of numpy arrays): the seeded draws, or the loaded flax tree. A
-bf16 model's parameters are rounded copies, and `quantize` folds BatchNorm
-into the f32 weights, as the JAX package does.
+state_dict of numpy arrays), which `quantize` folds as the JAX package does;
+`train`, `load_weights` and `load_jax_variables` refresh it and drop the
+int8 detector, which snapshots the old weights.
 """
 
 from __future__ import annotations
+
+import datetime
+import json
+import os
+import shutil
 
 import numpy as np
 import torch
 
 from . import pipelines, weights
+from .data.pipeline import BatchGenerator, preload_dataset
+from .data.prefetch import to_device
 from .models.network import MaskYoloNet
 from .quant import QuantizedDetector
+from .train import state as state_lib
+from .train import trainer as trainer_lib
+
+BF16_TRAINING = ("bf16 training is not ported yet: a bfloat16 network holds rounded "
+                 "parameters (ROADMAP Queue 1, bf16 training with f32 master weights)")
 
 
 class MaskYOLO:
-    def __init__(self, mode, config, seed: int = 0, device="cpu"):
-        if mode != "inference":
-            raise NotImplementedError(
-                f"mode={mode!r} is not ported yet; only 'inference' "
-                "(ROADMAP Queue 1: training, yolo)")
+    def __init__(self, mode, config, model_dir=None, yolo_pretrain_dir=None,
+                 yolo_trainable=True, seed: int = 0, device="cpu"):
+        if mode not in ("training", "inference", "yolo"):
+            raise ValueError(f"mode must be 'training', 'inference' or 'yolo', got {mode!r}")
+        if mode != "inference" and config.COMPUTE_DTYPE != "float32":
+            raise NotImplementedError(BF16_TRAINING)
         device = torch.device(device)
         if device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("device='cuda' requested but no CUDA device is available")
@@ -40,7 +62,13 @@ class MaskYOLO:
             raise ValueError(f"GRID_{{H,W}}={config.GRID_H},{config.GRID_W} must "
                              f"equal IMAGE_SHAPE/32={h // 32},{w // 32}")
         self.mode, self.config, self.seed, self.device = mode, config, seed, device
+        self.model_dir = model_dir or "./checkpoints"
+        self.yolo_trainable = yolo_trainable
+        self.epoch = 0
         self._qdet = None
+        self._tx = None
+        self._train_step = None
+        self._layer_regex = ".*"
 
         def build(compute_dtype):
             return MaskYoloNet(
@@ -55,11 +83,198 @@ class MaskYOLO:
         # draw the seeded weights in f32, keep them, then load them into the
         # compute-dtype network (the same rounding as drawing into it)
         f32 = build("float32")
-        f32.reset_parameters(torch.Generator().manual_seed(seed))
+        generator = torch.Generator().manual_seed(seed)
+        if mode == "inference":
+            f32.reset_parameters(generator)
+        else:
+            f32.init_flax_defaults(generator)
         self._host_state = {k: v.numpy().copy() for k, v in f32.state_dict().items()}
         self.net = build(config.COMPUTE_DTYPE)
         self.net.load_state_dict(f32.state_dict())
         self.net.to(device=device, memory_format=torch.channels_last).eval()
+
+        if yolo_pretrain_dir is not None:
+            if str(yolo_pretrain_dir).endswith((".h5", ".hdf5")):
+                raise NotImplementedError(
+                    "Keras h5 weights are not ported yet (ROADMAP Queue 1 item 8, "
+                    "MaskYOLO facade: load_weights including Keras h5)")
+            self.load_weights(yolo_pretrain_dir, by_name=True)
+
+    # -- training ------------------------------------------------------------
+
+    def compile(self, learning_rate, momentum=None, layer_regex: str = ".*",
+                total_steps: int = 0):
+        """Create the optimizer (the JAX package's optax chain, train/state.py)
+        and the train step. `momentum` is accepted for signature parity;
+        Adam ignores it. yolo_trainable=False freezes the backbone and the
+        YOLO head, the whole image→YOLO-output path."""
+        if self.config.COMPUTE_DTYPE != "float32":
+            raise NotImplementedError(BF16_TRAINING)
+        frozen = () if self.yolo_trainable else ("backbone", "yolo")
+        self._tx = state_lib.make_optimizer(
+            learning_rate, self.config, dict(self.net.named_parameters()),
+            layer_regex=layer_regex, frozen_prefixes=frozen, total_steps=total_steps)
+        self._train_step = trainer_lib.make_train_step(self.config, self._tx, self._loss_mode)
+
+    @property
+    def _loss_mode(self):
+        return "training" if self.mode == "training" else "yolo"
+
+    def set_trainable(self, layer_regex, **_):
+        """Record the trainable-layer regex; applied at compile()."""
+        self._layer_regex = layer_regex if isinstance(layer_regex, str) else ".*"
+
+    def train(self, train_dataset, val_dataset, learning_rate, epochs,
+              layers="all", augmentation=None, custom_callbacks=None,
+              no_augmentation_sources=None, verbose=True, profile_dir=None,
+              resume_from=None, stop_after_epoch=None):
+        """Train on preloaded datasets (the JAX package's signature).
+
+        Each epoch runs min(STEPS_PER_EPOCH, batches) steps (all batches when
+        STEPS_PER_EPOCH is 0), then validates on min(VALIDATION_STEPS,
+        batches) batches with BatchNorm on its running statistics, writes a
+        checkpoint `saved_model_<time>_e<epoch>.pt` into model_dir (keeping
+        the newest MAX_CHECKPOINTS), appends the epoch's metrics to
+        history.jsonl and calls each cb(epoch, train_metrics, val_loss,
+        state) of custom_callbacks. config.json in model_dir records the
+        config.
+
+        resume_from: a checkpoint of an earlier train(); restores params, BN
+        statistics, optimizer moments, step and epoch, then continues to
+        `epochs`. stop_after_epoch: return once that epoch's checkpoint is
+        written, while the schedules still see the full `epochs` horizon.
+        """
+        if augmentation is not None:
+            raise NotImplementedError(
+                "augmentation= is not ported yet (ROADMAP Queue 1, augmentation, "
+                "pooled data workers and native image ops)")
+        if profile_dir is not None:
+            raise NotImplementedError(
+                "profile_dir is not ported yet (ROADMAP Queue 1, training profiler traces)")
+        if int(getattr(self.config, "DATA_WORKERS", 0) or 0) > 0:
+            raise NotImplementedError(
+                "DATA_WORKERS > 0 is not ported yet (ROADMAP Queue 1, augmentation, "
+                "pooled data workers and native image ops)")
+        if max(int(self.config.DATA_PARALLEL or 0), int(self.config.MODEL_PARALLEL or 1)) > 1:
+            raise NotImplementedError(
+                "multi-device training is not ported yet (ROADMAP Queue 1 item 11, "
+                "parallel: DDP over NCCL)")
+        layer_regex = {"all": ".*"}.get(layers, layers)
+        mode = self._loss_mode
+        train_gen = BatchGenerator(preload_dataset(train_dataset, self.config), self.config,
+                                   mode=mode, shuffle=True, seed=self.seed)
+        val_gen = BatchGenerator(preload_dataset(val_dataset, self.config), self.config,
+                                 mode=mode, shuffle=False)
+
+        self.set_trainable(layer_regex)
+        steps_cap = int(getattr(self.config, "STEPS_PER_EPOCH", 0) or 0)
+        steps_per_epoch = min(steps_cap, len(train_gen)) if steps_cap else len(train_gen)
+        self.compile(learning_rate, self.config.LEARNING_MOMENTUM, layer_regex=layer_regex,
+                     total_steps=max(1, epochs * steps_per_epoch))
+        self._invalidate_infer_fns()   # the weights are about to change
+
+        state = state_lib.create_train_state(self.net, self._tx)
+        if resume_from is not None:
+            state, self.epoch = state_lib.resume_train_state(resume_from, state, self._tx)
+            if verbose:
+                print(f"Resumed from {resume_from} at epoch {self.epoch}")
+        eval_step = trainer_lib.make_eval_step(self.config, mode)
+
+        os.makedirs(self.model_dir, exist_ok=True)
+        with open(os.path.join(self.model_dir, "config.json"), "w") as f:
+            json.dump({k: v for k, v in self.config.to_dict().items()
+                       if isinstance(v, (int, float, str, bool, list, tuple, dict, type(None)))},
+                      f, indent=2, default=str)
+        val_steps = int(getattr(self.config, "VALIDATION_STEPS", 0) or 0)
+        n_val = min(len(val_gen), val_steps) if val_steps > 0 else len(val_gen)
+        start_epoch = self.epoch
+        try:
+            for epoch in range(start_epoch, epochs):
+                if verbose:
+                    print(f"Epoch {epoch + 1}/{epochs}")
+                state, metrics = trainer_lib.run_epoch(
+                    self._train_step, state, train_gen, verbose=verbose,
+                    max_steps=steps_cap)
+                train_gen.on_epoch_end()
+
+                val = [eval_step(state, to_device(val_gen[i], self.device))["loss"]
+                       for i in range(n_val)]
+                val_loss = float(np.mean(torch.stack(val).cpu().numpy())) if val else float("nan")
+                if verbose:
+                    print(f"  train: {metrics}  val_loss: {val_loss:.4f}")
+
+                ckpt_path = os.path.join(
+                    self.model_dir, "saved_model_" + datetime.datetime.now().strftime(
+                        "%b%d-%H-%M-%S") + f"_e{epoch + 1:04d}.pt")
+                state_lib.save_checkpoint(ckpt_path, state, epoch=epoch + 1)
+                self._rotate_checkpoints()
+                self.epoch = epoch + 1
+                with open(os.path.join(self.model_dir, "history.jsonl"), "a") as f:
+                    f.write(json.dumps({"epoch": epoch + 1, "val_loss": val_loss,
+                                        **metrics}) + "\n")
+                for cb in custom_callbacks or ():
+                    cb(epoch, metrics, val_loss, state)
+                if stop_after_epoch is not None and epoch + 1 >= stop_after_epoch:
+                    if verbose:
+                        print(f"Stopping after epoch {epoch + 1} "
+                              f"(stop_after_epoch; target {epochs})")
+                    break
+        finally:
+            self.net.eval()
+            self._sync_host_state()
+        return state
+
+    def _rotate_checkpoints(self):
+        """Keep only the newest MAX_CHECKPOINTS epoch checkpoints (0 keeps
+        all)."""
+        keep = int(getattr(self.config, "MAX_CHECKPOINTS", 0) or 0)
+        if keep <= 0:
+            return
+        paths = [os.path.join(self.model_dir, d) for d in os.listdir(self.model_dir)
+                 if d.startswith("saved_model_")]
+        for stale in sorted(paths, key=lambda p: (os.path.getmtime(p), p))[:-keep]:
+            if os.path.isdir(stale):
+                shutil.rmtree(stale, ignore_errors=True)
+            else:
+                os.remove(stale)
+
+    # -- checkpoint I/O --------------------------------------------------------
+
+    def save_weights(self, filepath):
+        """Write params and BatchNorm statistics (no optimizer state) as a
+        checkpoint that load_weights and resume_from read."""
+        state_lib.save_checkpoint(filepath, state_lib.TrainState(self.net, {}, 0),
+                                  epoch=self.epoch)
+
+    def load_weights(self, filepath, by_name=False, exclude=None):
+        """Restore params and BatchNorm statistics from a checkpoint, with the
+        JAX package's by_name/exclude semantics: by_name replaces only the
+        top-level modules (backbone, feature_map, yolo, mask) found in the
+        file, exclude skips the named ones."""
+        self._invalidate_infer_fns()
+        ckpt = state_lib.load_checkpoint(filepath)
+        current = state_lib.TrainState(self.net, {}, 0)
+        params = state_lib.merge_params(current.params, ckpt["params"],
+                                        by_name=by_name, exclude=exclude)
+        stats = current.batch_stats
+        if ckpt.get("batch_stats"):
+            stats = state_lib.merge_params(stats, ckpt["batch_stats"],
+                                           by_name=by_name, exclude=exclude)
+        state_lib.load_into(self.net, params, stats)
+        self._sync_host_state()
+
+    def _sync_host_state(self):
+        self._host_state = {k: v.detach().float().cpu().numpy() if v.is_floating_point()
+                            else v.detach().cpu().numpy()
+                            for k, v in self.net.state_dict().items()}
+
+    def _invalidate_infer_fns(self):
+        """Drop the int8 detector: it snapshots the weights, so any weight
+        change (load_weights, train) must drop it or detect would keep
+        serving the stale graph."""
+        self._qdet = None
+
+    # -- inference -------------------------------------------------------------
 
     def load_jax_variables(self, variables):
         """Load a flax variable tree of `mask_yolo_tpu.MaskYoloNet` (numpy
@@ -68,7 +283,7 @@ class MaskYOLO:
         self.net.load_state_dict({k: torch.tensor(v) for k, v in state.items()})
         self._host_state = {k: v.astype(np.float32) if v.dtype.kind == "f" else v
                             for k, v in state.items()}
-        self._qdet = None   # the int8 graph snapshots the old weights
+        self._invalidate_infer_fns()
 
     def quantize(self, calib_images, finetune_steps: int = 0):
         """Switch detect/detect_batch to the int8 path (post-training
@@ -76,7 +291,8 @@ class MaskYOLO:
         by 255) or float in [0, 1], for the activation-range calibration,
         which runs on the model's device. The config's QUANT_* switches pick
         the kernels (QUANT_DW_INT8 + QUANT_FUSED_DS: K1; QUANT_FUSED_MASK:
-        K3). A later load_jax_variables drops the int8 detector."""
+        K3). A later load_jax_variables, load_weights or train drops the
+        int8 detector."""
         if finetune_steps:
             raise NotImplementedError(
                 "quantization-aware finetune is not ported yet (ROADMAP Queue 1 item 10)")
@@ -106,6 +322,7 @@ class MaskYOLO:
         pipelines.detect_outputs); the int8 path after quantize()."""
         if self._qdet is not None:
             return self._qdet.detect_outputs(self._images(images))
+        self.net.eval()
         return pipelines.detect_outputs(self.net, self._images(images), self.config)
 
     def detect(self, image, cs_threshold=0.35, display=False):

@@ -6,6 +6,10 @@ so the NHWC views the public functions hand out are free `permute`s.
 Precision follows the flax modules: convolutions run in the compute dtype
 (their parameters are created in it; flax casts its f32 kernels to the same
 dtype at call time, which rounds identically), BatchNorm runs in float32.
+A bf16 network's parameters are therefore rounded copies, so it serves but
+does not train (model.py raises).
+
+BatchNorm follows flax's `nn.BatchNorm` in train mode too (`BatchNorm`).
 
 Padding follows flax "SAME": at stride 1 a 3×3 pads 1 on each side, at
 stride 2 on an even input it pads 0 before and 1 after, which torch's
@@ -23,8 +27,13 @@ BN_MOMENTUM = 0.01   # flax momentum 0.99 is torch momentum 0.01
 
 
 def relu6(x):
-    """relu capped at 6."""
-    return torch.clamp(x, 0.0, 6.0)
+    """relu capped at 6. Under autograd it is JAX's minimum(maximum(x, 0), 6),
+    whose gradient at a tie (x exactly 0 or 6, common after an all-zero
+    depthwise window) is 1/2, as torch.maximum/minimum give it; torch.clamp
+    would pass the whole gradient there."""
+    if not (torch.is_grad_enabled() and x.requires_grad):
+        return torch.clamp(x, 0.0, 6.0)
+    return torch.minimum(torch.maximum(x, x.new_zeros(())), x.new_full((), 6.0))
 
 
 def same_pad(x, kernel: int, stride: int):
@@ -58,8 +67,40 @@ class SameConv2d(nn.Conv2d):
         return super().forward(x)
 
 
+class BatchNorm(nn.BatchNorm2d):
+    """BatchNorm with flax `nn.BatchNorm(momentum=0.99, epsilon=1e-3)`
+    semantics.
+
+    Eval mode is nn.BatchNorm2d's (running statistics). Train mode computes
+    the batch mean and the *biased* variance E[x²] − E[x]² (clamped at 0) in
+    float32 over (N, H, W), normalizes with them as flax does,
+    (x − mean)·(rsqrt(var + eps)·scale) + bias, and moves the running
+    statistics by ra = 0.99·ra + 0.01·stat with that same biased variance.
+    (nn.BatchNorm2d would update `running_var` with the unbiased n/(n−1)
+    variance, 14 % too large at 8 samples.)
+    """
+
+    def __init__(self, num_features):
+        super().__init__(num_features, eps=BN_EPS, momentum=BN_MOMENTUM)
+
+    def forward(self, x):
+        if not self.training:
+            return super().forward(x)
+        x = x.float()
+        dims = (0, 2, 3)
+        mean = x.mean(dims)
+        var = torch.clamp((x * x).mean(dims) - mean * mean, min=0.0)
+        with torch.no_grad():
+            keep = 1.0 - self.momentum
+            self.running_mean.mul_(keep).add_(mean * self.momentum)
+            self.running_var.mul_(keep).add_(var * self.momentum)
+            self.num_batches_tracked.add_(1)
+        mul = torch.rsqrt(var + self.eps) * self.weight
+        return (x - mean[:, None, None]) * mul[:, None, None] + self.bias[:, None, None]
+
+
 def batch_norm(num_features):
-    return nn.BatchNorm2d(num_features, eps=BN_EPS, momentum=BN_MOMENTUM)
+    return BatchNorm(num_features)
 
 
 class ConvBN(nn.Module):

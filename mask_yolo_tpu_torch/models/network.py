@@ -46,8 +46,8 @@ class MaskYoloNet(nn.Module):
 
     @torch.no_grad()
     def reset_parameters(self, generator: torch.Generator):
-        """Seeded random weights: He-normal conv kernels, zero biases,
-        identity BatchNorm. He-normal keeps the activations' scale through the
+        """Seeded random weights for the inference smoke runs: He-normal conv
+        kernels, zero biases, identity BatchNorm. He-normal keeps the activations' scale through the
         net's ReLUs, so an untrained net still gives spread scores and masks
         (flax's LeCun-normal default shrinks them toward logit 0). Draws on
         the CPU generator, so a seed gives the same weights on every device."""
@@ -59,6 +59,28 @@ class MaskYoloNet(nn.Module):
                 cin = w.shape[0] if isinstance(m, nn.ConvTranspose2d) else w.shape[1]
                 std = math.sqrt(2.0 / (cin * w.shape[2] * w.shape[3]))
                 w.copy_(torch.randn(w.shape, generator=generator) * std)
+                if m.bias is not None:
+                    m.bias.zero_()
+            elif isinstance(m, nn.BatchNorm2d):
+                m.reset_parameters()
+
+    @torch.no_grad()
+    def init_flax_defaults(self, generator: torch.Generator):
+        """Seeded weights drawn as flax's default initializers draw them (the
+        JAX package's `net.init`, which training from scratch starts from):
+        LeCun-normal conv kernels, truncated at ±2 std (std =
+        sqrt(1/fan_in)/0.8796, fan_in = kh·kw·in/groups), zero biases, unit
+        BatchNorm scales and running variances, zero shifts and means. Draws
+        on the CPU generator, so a seed gives the same weights on every
+        device. (The numbers differ from jax.random's for the same seed.)"""
+        for m in self.modules():
+            if isinstance(m, (nn.Conv2d, nn.ConvTranspose2d)):
+                w = m.weight
+                cin = w.shape[0] if isinstance(m, nn.ConvTranspose2d) else w.shape[1]
+                std = math.sqrt(1.0 / (cin * w.shape[2] * w.shape[3])) / 0.87962566103423978
+                draw = torch.empty(w.shape, dtype=torch.float32)
+                nn.init.trunc_normal_(draw, 0.0, 1.0, -2.0, 2.0, generator=generator)
+                w.copy_(draw * std)
                 if m.bias is not None:
                     m.bias.zero_()
             elif isinstance(m, nn.BatchNorm2d):

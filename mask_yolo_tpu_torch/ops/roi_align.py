@@ -10,6 +10,11 @@ with Wy [pool_h, H] and Wx [pool_w, W] bilinear "tent" matrices whose rows
 are zero for samples outside the map (tf.image.crop_and_resize with
 extrapolation_value=0), and rounds the weights and the intermediate to the
 working dtype at the same points as the JAX version.
+
+`crop_and_resize_backward` is the plain twin of the crop kernel's backward
+(the gradient with respect to the feature map; boxes get none, as in JAX),
+and `crop_and_resize_per_roi` the single-channel f32 crop that target
+assignment uses on ground-truth masks.
 """
 
 from __future__ import annotations
@@ -56,6 +61,34 @@ def crop_and_resize(feature, boxes, crop_size, dtype=None):
     feat = feature.to(dtype).reshape(b, h, w * c)
     tmp = torch.matmul(wy.reshape(b, r * ph, h), feat).reshape(b, r, ph, w, c)
     return torch.matmul(wx[:, :, None], tmp)           # [B, R, ph, pw, C]
+
+
+def crop_and_resize_backward(grad, boxes, feature_hw):
+    """Gradient of `crop_and_resize` (f32) with respect to its feature map:
+    grad [B, R, ph, pw, C], boxes [B, R, 4] → d_feature [B, H, W, C], the
+    transposed separable contraction Σ_r Wy[r]ᵀ · grad[r] · Wx[r]."""
+    b, r, ph, pw, c = grad.shape
+    h, w = feature_hw
+    x1, y1, x2, y2 = boxes.unbind(-1)
+    wy = interp_matrix(y1, y2, h, ph, grad.dtype)      # [B, R, ph, H]
+    wx = interp_matrix(x1, x2, w, pw, grad.dtype)      # [B, R, pw, W]
+    tmp = torch.matmul(wx.transpose(-1, -2)[:, :, None], grad)   # [B, R, ph, W, C]
+    d = torch.matmul(wy.reshape(b, r * ph, h).transpose(1, 2),
+                     tmp.reshape(b, r * ph, w * c))    # [B, H, W·C]
+    return d.reshape(b, h, w, c)
+
+
+def crop_and_resize_per_roi(images, boxes, crop_size):
+    """Single-channel crop of one image per ROI, in f32: images [R, H, W],
+    boxes [R, 4] (x1, y1, x2, y2) normalized → [R, ph, pw]. Used for the
+    mask targets (`ops/target_assign.py`)."""
+    ph, pw = crop_size
+    _, h, w = images.shape
+    x1, y1, x2, y2 = boxes.float().unbind(-1)
+    wy = interp_matrix(y1, y2, h, ph)                  # [R, ph, H]
+    wx = interp_matrix(x1, x2, w, pw)                  # [R, pw, W]
+    tmp = torch.bmm(wy, images.float())                # [R, ph, W]
+    return torch.bmm(tmp, wx.transpose(1, 2))
 
 
 def paste_masks(masks, boxes, image_size, dtype=torch.float32):

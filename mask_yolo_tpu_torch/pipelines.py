@@ -1,6 +1,13 @@
-"""Image → boxes + instance masks — port of the detect path of
-`mask_yolo_tpu/pipelines.py` (`images_f32`, `detect_outputs`,
-`detect_from_callables`).
+"""The training forward and the detect path — port of
+`mask_yolo_tpu/pipelines.py` (`training_loss`, `yolo_only_loss`,
+`images_f32`, `detect_outputs`, `detect_from_callables`).
+
+`training_loss` runs the trunk, decodes the proposals (no gradient flows
+into them), assigns mask targets, keeps the MASK_TRAIN_TOP_ROIS best
+assignment slots (positives first), runs the mask branch on them through the
+crop kernel, and sums the YOLO and mask losses with LOSS_WEIGHTS.
+`yolo_only_loss` is the trunk and the YOLO loss alone. Both set the
+network's BatchNorm mode: batch statistics iff `train` and TRAIN_BN.
 
 Decode, zero-area filter, score top-K, index-order class NMS, the MASK_TOP_K
 valid-first re-sort, the mask branch on the surviving slots, the paste to
@@ -15,9 +22,11 @@ from __future__ import annotations
 
 import torch
 
-from .ops.boxes import decode_detections
+from .losses import mask_loss, yolo_loss
+from .ops.boxes import decode_detections, decode_yolo_proposals, norm_boxes
 from .ops.nms import index_order_class_nms_mask
 from .ops.roi_align import paste_masks
+from .ops.target_assign import assign_mask_targets
 
 
 def images_f32(images):
@@ -39,6 +48,59 @@ def _take(x, idx):
     """x[b, idx[b, j], ...] for x [B, N, ...] and idx [B, k]."""
     return torch.gather(x, 1, idx.reshape(idx.shape + (1,) * (x.dim() - 2))
                         .expand(idx.shape + x.shape[2:]))
+
+
+def training_loss(net, batch, config, seen, train: bool = True):
+    """The 'training'-mode forward and combined loss.
+
+    batch: dict of tensors on the network's device —
+      image [B, H, W, 3] uint8 or float in [0, 1], yolo_target
+      [B, gh, gw, nb, 5+C], true_boxes [B, 1, 1, 1, T, 4], gt_class_ids
+      [B, G] int, gt_boxes [B, G, 4] pixel xyxy, gt_masks [B, h, w, G] bool.
+    seen: batches seen (host number), for the YOLO loss's warm-up.
+    Returns (loss, metrics) with metrics detached.
+    """
+    net.train(train and bool(config.TRAIN_BN))
+    grid, fmap = net.trunk(images_f32(batch["image"]))
+
+    h, w = config.IMAGE_SHAPE[:2]
+    proposals = decode_yolo_proposals(grid, config.anchors_wh, config.GRID_H,
+                                      config.GRID_W).detach()
+    gt_boxes_norm = norm_boxes(batch["gt_boxes"], (w, h))
+    rois, target_class_ids, target_masks = assign_mask_targets(
+        proposals, batch["gt_class_ids"], gt_boxes_norm, batch["gt_masks"].float(),
+        tuple(config.MASK_SHAPE), bool(config.USE_MINI_MASK))
+
+    # MASK_TRAIN_TOP_ROIS: the mask branch on the top-M assignment slots,
+    # positives first in index order (lax.top_k's ties)
+    m_top = int(getattr(config, "MASK_TRAIN_TOP_ROIS", 0) or 0)
+    if m_top and m_top < rois.shape[1]:
+        _, order = _top_k((target_class_ids > 0).float(), m_top)
+        rois = _take(rois, order)
+        target_class_ids = _take(target_class_ids, order)
+        target_masks = _take(target_masks, order)
+
+    pred_masks = net.mask_branch(rois, fmap)
+    y_loss, metrics = yolo_loss(batch["yolo_target"], grid, batch["true_boxes"],
+                                config, seen)
+    m_loss = mask_loss(target_masks, target_class_ids, pred_masks)
+    lw = config.LOSS_WEIGHTS
+    total = (y_loss * lw.get("yolo_sum_loss", 1.0)
+             + m_loss * lw.get("myolo_mask_loss", 1.0))
+    metrics["myolo_mask_loss"] = m_loss.detach()
+    metrics["loss"] = total.detach()
+    return total, metrics
+
+
+def yolo_only_loss(net, batch, config, seen, train: bool = True):
+    """The 'yolo'-mode forward: trunk and YOLO loss only. batch needs image,
+    yolo_target and true_boxes. Returns (loss, metrics)."""
+    net.train(train and bool(config.TRAIN_BN))
+    grid, _ = net.trunk(images_f32(batch["image"]))
+    loss, metrics = yolo_loss(batch["yolo_target"], grid, batch["true_boxes"],
+                              config, seen)
+    metrics["loss"] = loss.detach()
+    return loss, metrics
 
 
 def detect_outputs(net, images, config):

@@ -95,29 +95,44 @@ def unconvert_kernel(module: str, weight: np.ndarray) -> np.ndarray:
     return np.ascontiguousarray(weight.transpose(2, 3, 1, 0))
 
 
+def flax_leaf(key: str, ndim: int):
+    """The flax (collection, module path, leaf name) of a torch state_dict
+    key whose value has `ndim` dims: a 4-D `weight` is a conv kernel, a 1-D
+    one a BatchNorm scale. None for `num_batches_tracked`, which has no flax
+    leaf."""
+    *modules, name = key.split(".")
+    if name == "num_batches_tracked":
+        return None
+    if name == "weight":
+        return "params", modules, "kernel" if ndim == 4 else "scale"
+    if name == "bias":
+        return "params", modules, "bias"
+    if name in ("running_mean", "running_var"):
+        return "batch_stats", modules, name[len("running_"):]
+    raise KeyError(f"unmapped torch key {key!r}")
+
+
+def flax_path(key: str, ndim: int) -> str:
+    """The slash-joined flax path of a torch parameter key, as the JAX
+    package names it (`train/state.py::path_name`):
+    'backbone.block1.conv_dw.weight' → 'backbone/block1/conv_dw/kernel'."""
+    _, modules, leaf = flax_leaf(key, ndim)
+    return "/".join(modules + [leaf])
+
+
 def to_jax_variables(state_dict) -> dict:
     """A torch state_dict (numpy arrays or CPU tensors) as the flax variable
     tree `{"params": ..., "batch_stats": ...}` of the same network: the exact
-    inverse of `from_jax_variables`. A 4-D `weight` is a conv kernel, a 1-D
-    one a BatchNorm scale; `num_batches_tracked` has no flax leaf."""
+    inverse of `from_jax_variables`."""
     variables = {"params": {}, "batch_stats": {}}
     for key, value in state_dict.items():
-        *modules, name = key.split(".")
-        if name == "num_batches_tracked":
-            continue
         value = np.asarray(value.detach().cpu() if hasattr(value, "detach") else value)
-        if name == "weight":
-            if value.ndim == 4:
-                collection, leaf = "params", "kernel"
-                value = unconvert_kernel(modules[-1], value)
-            else:
-                collection, leaf = "params", "scale"
-        elif name == "bias":
-            collection, leaf = "params", "bias"
-        elif name in ("running_mean", "running_var"):
-            collection, leaf = "batch_stats", name[len("running_"):]
-        else:
-            raise KeyError(f"unmapped torch key {key!r}")
+        where = flax_leaf(key, value.ndim)
+        if where is None:
+            continue
+        collection, modules, leaf = where
+        if leaf == "kernel":
+            value = unconvert_kernel(modules[-1], value)
         node = variables[collection]
         for m in modules:
             node = node.setdefault(m, {})

@@ -44,3 +44,15 @@ def test_no_jax_import_statement(path):
             continue
         for name in names:
             assert name.split(".")[0] not in BANNED, f"{path}: imports {name}"
+
+
+# the training slice's modules: each must exist, so that both tests above
+# cover it
+TRAINING_SLICE = ("losses", "ops.target_assign", "train.state", "train.trainer",
+                  "utils.image", "data.dataset", "data.loader", "data.encoder",
+                  "data.pipeline", "data.prefetch", "data.shapes")
+
+
+@pytest.mark.parametrize("name", TRAINING_SLICE)
+def test_training_slice_module_is_covered(name):
+    assert ROOT / "mask_yolo_tpu_torch" / (name.replace(".", "/") + ".py") in PORT_FILES

@@ -151,3 +151,67 @@ def test_crop_wrapper_rejects_what_the_kernel_does_not_take():
     # a device that is neither cpu nor cuda never reaches the plain twin
     with pytest.raises(ValueError, match="cpu or cuda"):
         crop_rois(fmap.to("meta"), bx.to("meta"), 2)
+
+
+def _zero_area_and_mirrored(bx):
+    """A zero-area box and an x/y-mirrored one (x2 < x1, y2 < y1) in the
+    last two slots of image 0."""
+    bx = bx.copy()
+    bx[0, -2] = [0.3, 0.4, 0.3, 0.4]
+    bx[0, -1] = [0.8, 0.7, 0.2, 0.1]
+    return bx
+
+
+@pytest.mark.parametrize("pool", [1, 4, 6])
+def test_crop_backward_plain_matches_jax_vjp(rng, pool):
+    """The K2 backward's plain version against jax.vjp of the JAX crop, and
+    against torch autograd of the port's forward twin: 1e-5 of the
+    gradient's scale. Off-map, zero-area and mirrored boxes included."""
+    import jax
+
+    fmap = rng.randn(2, 10, 12, 16).astype(np.float32)
+    bx = _zero_area_and_mirrored(_boxes(rng, 2, 7, off_map=True))
+    g = rng.randn(2, 7, pool, pool, 16).astype(np.float32)
+    _, vjp = jax.vjp(lambda f: jroi.crop_and_resize(f, jnp.asarray(bx), (pool, pool)),
+                     jnp.asarray(fmap))
+    want = np.asarray(vjp(jnp.asarray(g))[0])
+    got = roi_align.crop_and_resize_backward(T(g), T(bx), (10, 12)).numpy()
+    tol = 1e-5 * np.abs(want).max()
+    np.testing.assert_allclose(got, want, atol=tol, rtol=0)
+    f = T(fmap).requires_grad_()
+    roi_align.crop_and_resize(f, T(bx), (pool, pool)).backward(T(g))
+    np.testing.assert_allclose(got, f.grad.numpy(), atol=tol, rtol=0)
+
+
+def test_crop_autograd_wiring_on_cpu(rng):
+    """crop_rois on an f32 fmap that requires grad goes through the
+    autograd.Function: the plain backward on CPU tensors (no kernel
+    launch), a gradient for the fmap, none for the boxes; a bf16 fmap that
+    requires grad raises (bf16 training is not ported)."""
+    from mask_yolo_tpu_torch.ops.roi_crop import crop_rois_backward
+
+    fmap = T(rng.randn(2, 10, 12, 16).astype(np.float32)).requires_grad_()
+    bx = T(_boxes(rng, 2, 5, off_map=True)).requires_grad_()
+    g = T(rng.randn(2, 5, 4, 4, 16).astype(np.float32))
+    launches = crop_rois.launches, crop_rois_backward.launches
+    out = crop_rois(fmap, bx, 4)
+    assert out.grad_fn is not None
+    out.backward(g)
+    assert (crop_rois.launches, crop_rois_backward.launches) == launches
+    assert bx.grad is None
+    want = roi_align.crop_and_resize_backward(g, bx.detach(), (10, 12))
+    assert torch.equal(fmap.grad, want)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        crop_rois(fmap.detach().bfloat16().requires_grad_(), bx.detach(), 4)
+    with pytest.raises(ValueError):
+        crop_rois_backward(g, bx.detach()[:, :3].contiguous(), (10, 12))
+
+
+def test_per_roi_crop_matches_jax(rng):
+    """The f32 single-channel crop of target assignment: 1e-6 of the
+    masks' scale (values in [0, 1])."""
+    masks = (rng.rand(6, 16, 20) > 0.5).astype(np.float32)
+    bx = _boxes(rng, 1, 6, off_map=True)[0]
+    want = np.asarray(jroi.crop_and_resize_per_roi(jnp.asarray(masks), jnp.asarray(bx), (8, 8)))
+    got = roi_align.crop_and_resize_per_roi(T(masks), T(bx), (8, 8)).numpy()
+    np.testing.assert_allclose(got, want, atol=1e-6, rtol=0)

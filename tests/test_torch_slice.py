@@ -169,8 +169,11 @@ def test_model_refuses_cuda_without_a_gpu(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         MaskYOLO("inference", PortTiny(), device="cuda")
-    with pytest.raises(NotImplementedError):
-        MaskYOLO("training", PortTiny())
+    # training is ported in f32; bf16 training raises, naming its ROADMAP item
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        MaskYOLO("training", type("Bf16", (PortTiny,), {"COMPUTE_DTYPE": "bfloat16"})())
+    with pytest.raises(ValueError):
+        MaskYOLO("serving", PortTiny())
     with pytest.raises(NotImplementedError, match="resnet50_fpn"):
         torch_network.MaskYoloNet(3, 2, backbone="resnet50_fpn")
 

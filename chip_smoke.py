@@ -2,6 +2,14 @@
 """Run the PyTorch port (`mask_yolo_tpu_torch`) once on one NVIDIA GPU.
 
     python3 chip_smoke.py          # from the repository root; needs CUDA and nvcc
+    python3 chip_smoke.py --parent-csrc DIR
+                                   # also build K1 and K3 from DIR and time them
+                                   # against the current ones, in turns; DIR holds
+                                   # fused_ds_block.cu and fused_mask_branch.cu of
+                                   # commit 112676f (the layouts ParentKernels
+                                   # passes), e.g. git show
+                                   # 112676f:mask_yolo_tpu_torch/csrc/<file>
+                                   # > build/parent_csrc/<file>
 
 Phases, each fatal on failure (nothing is caught):
   1. device      the card's name and power limit; TF32 off for f32 references
@@ -16,14 +24,18 @@ Phases, each fatal on failure (nothing is caught):
   7. build       the int8 kernels K1 (fused DS block) and K3 (fused mask
                  branch), compiled in parallel while phases 2-6 run
   8. kernels     K1 and K3 vs their plain PyTorch versions at the 224²
-                 slice's shapes and at CocoStyleConfig's 416² shapes: K1
-                 bit-equal (int8) or within rtol 1e-6 (f32 out), K3 within
-                 the bounds of tests/test_pallas_mask.py; CUDA-event times
+                 slice's shapes at batch 16 and 128 (K3 at K=10) and at
+                 CocoStyleConfig's 416² shapes: K1 bit-equal (int8) or within
+                 rtol 1e-6 (f32 out), K3 within the bounds of
+                 tests/test_pallas_mask.py; CUDA-event times beside each
+                 kernel's bound and torch._int_mm on the same GEMM shapes (a
+                 yardstick of the tensor cores, not the kernels' function)
   9. int8 slice  MaskYOLO.quantize + detect_batch at 224² with K1 and K3
                  (exactly 10 K1 launches and 1 K3 launch), held against the
                  same detector's chained layers
  10. serve       BatchingExecutor over the int8 model answers 16 requests
- 11. throughput  int8 detect_batch at batch 128, fused and chained (recorded)
+ 11. throughput  int8 detect_batch at batch 128, fused and chained, and the
+                 fused one's split into trunk, K1, K3 and the rest (recorded)
  T1. kernel      the crop kernel's backward (K2 backward) vs its plain version,
                  f32, at the training shape (B=16, K=32, 28x28x256, P=14) and
                  at CocoStyleConfig's (B=4, K=128, 52x52x256), with off-map,
@@ -37,12 +49,25 @@ Phases, each fatal on failure (nothing is caught):
                  train step at batch 16 and peak memory (recorded)
 
 The last three lines are the `nvidia-smi` name/power-limit line, a JSON line
-of kernels, and {"ok": true, "device": {...}}. Without a CUDA device the
-script exits 1 and prints no result.
+of kernels (times, launches per path, bounds), and {"ok": true, "device":
+{...}}. Without a CUDA device the script exits 1 and prints no result.
+
+A bound is the least time the card could take for the kernel's work: the
+larger of the bytes it must move (each input read once, each output written
+once) over HBM's 3.35 TB/s and its operations over the peak rate of their
+type (int8 1,979 TOP/s, bf16 989 TFLOP/s, f32 67 TFLOP/s; NVIDIA's data
+sheet for the H100 SXM at 700 W).
+
+Times are CUDA-event means over back-to-back calls behind a sleep kernel
+that lets the host enqueue them all first (cuda_ms), so a kernel that runs
+faster than Python launches it reads its device time; a call that
+synchronises reads its wall time.
 """
 
 from __future__ import annotations
 
+import argparse
+import ctypes
 import json
 import shutil
 import subprocess
@@ -53,17 +78,21 @@ from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
+from torch.profiler import ProfilerActivity, profile
 
 from mask_yolo_tpu_torch import CocoStyleConfig, MaskYOLO
 from mask_yolo_tpu_torch.data.pipeline import BatchGenerator, preload_dataset
 from mask_yolo_tpu_torch.data.prefetch import to_device
 from mask_yolo_tpu_torch.data.shapes import ShapesConfig, ShapesDataset
 from mask_yolo_tpu_torch.ops import _build, roi_crop
+from mask_yolo_tpu_torch.ops import ds_block
 from mask_yolo_tpu_torch.ops.ds_block import fused_ds_block, fused_ds_block_reference
 from mask_yolo_tpu_torch.ops.mask_fused import (fused_mask_branch,
                                                 fused_mask_branch_reference,
-                                                pack_mask_weights, weights_to)
-from mask_yolo_tpu_torch.ops.roi_align import crop_and_resize, crop_and_resize_backward
+                                                pack_mask_weights, unpack_mask_weights,
+                                                weights_to)
+from mask_yolo_tpu_torch.ops.roi_align import (crop_and_resize, crop_and_resize_backward,
+                                               interp_matrix)
 from mask_yolo_tpu_torch.ops.roi_crop import crop_rois, crop_rois_backward
 from mask_yolo_tpu_torch.pipelines import detect_from_callables, images_f32, training_loss
 from mask_yolo_tpu_torch.serve import BatchingExecutor
@@ -82,6 +111,10 @@ DS_224 = [(112, 112, 32, 64, True), (56, 56, 64, 128, True), (28, 28, 256, 256, 
 DS_416 = [(208, 208, 32, 64, True), (104, 104, 64, 128, True), (52, 52, 256, 256, True),
           (52, 52, 256, 512, False), (26, 26, 512, 512, True), (13, 13, 1024, 1024, True)]
 K1_LAUNCHES, K3_LAUNCHES = 10, 1   # per int8 detect_batch
+THROUGHPUT_BATCH = 128
+HBM_BYTES_S = 3.35e12              # the H100 SXM's peaks (module docstring)
+PEAK_OPS_S = {"int8": 1979e12, "bf16": 989e12, "f32": 67e12}
+SLEEP_MAX_S = 0.25                 # cuda_ms's longest head start for the host
 # the K2 backward at the training path's shape and at CocoStyleConfig's
 BWD_SHAPES = [dict(b=16, h=28, w=28, c=256, k=32, pool=14),
               dict(b=4, h=52, w=52, c=256, k=128, pool=14)]
@@ -120,18 +153,56 @@ def log(msg):
 
 
 def cuda_ms(fn, iters=50, warmup=5):
-    """Mean device time of fn() over `iters` back-to-back calls."""
+    """Mean device time of fn() over `iters` back-to-back calls. A sleep
+    kernel holds the stream while the host enqueues them, longer than the
+    warm-up calls took the host, so a call that the device finishes faster
+    than Python launches it reads its device time, not the launch overhead
+    (a call that synchronises reads its wall time as before)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
     for _ in range(warmup):
         fn()
+    host_s = (time.perf_counter() - t0) / warmup
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     torch.cuda.synchronize()
+    # at most 2 GHz: the sleep lasts at least 1.5x the host's enqueue time
+    torch.cuda._sleep(int(min(1.5 * iters * host_s, SLEEP_MAX_S) * 2e9))
     start.record()
     for _ in range(iters):
         fn()
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def bound(nbytes, ops):
+    """(bound_ms, "bytes" or "operations"): the larger of `nbytes` over HBM's
+    rate and the operations ({type: count}) over their peak rates."""
+    t_bytes = nbytes / HBM_BYTES_S
+    t_ops = sum(n / PEAK_OPS_S[kind] for kind, n in ops.items())
+    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
+
+
+def nbytes(*tensors):
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def crop_fmap_bytes(fmap, boxes, pool):
+    """Bytes of the fmap pixels that some ROI's bilinear taps touch (with a
+    non-zero weight): what the crop must read of its map."""
+    b, h, w, c = fmap.shape
+    rows = (interp_matrix(boxes[..., 1], boxes[..., 3], h, pool) != 0).any(-2)   # [B, K, H]
+    cols = (interp_matrix(boxes[..., 0], boxes[..., 2], w, pool) != 0).any(-2)   # [B, K, W]
+    touched = (rows[..., :, None] & cols[..., None, :]).any(1)                    # [B, H, W]
+    return int(touched.sum().item()) * c * fmap.element_size()
+
+
+def int_mm_ms(dev, m, k, n):
+    """torch._int_mm on random int8 [m, k] x [k, n] (column-major), ms."""
+    a = torch.randint(-127, 128, (m, k), dtype=torch.int8, device=dev)
+    b = torch.randint(-127, 128, (n, k), dtype=torch.int8, device=dev).t()
+    return cuda_ms(lambda: torch._int_mm(a, b), 20, 3)
 
 
 def random_boxes(rng, b, k):
@@ -147,7 +218,8 @@ def random_boxes(rng, b, k):
 
 
 def phase_kernel(dev, rng):
-    """Crop kernel vs plain twin; returns {dtype: (max_abs_err, ms, plain_ms)}."""
+    """Crop kernel vs plain twin; returns {dtype: [max_abs_err, ms, plain_ms,
+    (bound_ms, bound_by)]}."""
     s = KERNEL_SHAPE
     fmap32 = torch.tensor(rng.standard_normal((s["b"], s["h"], s["w"], s["c"]),
                                               dtype=np.float32), device=dev)
@@ -172,10 +244,15 @@ def phase_kernel(dev, rng):
         plain = lambda: crop_and_resize(fmap, boxes, (s["pool"], s["pool"]))  # noqa: E731
         p1, k1, k2, p2 = cuda_ms(plain), cuda_ms(kernel), cuda_ms(kernel), cuda_ms(plain)
         ms, plain_ms = (k1 + k2) / 2, (p1 + p2) / 2
+        out_elems = s["b"] * s["k"] * s["pool"] ** 2 * s["c"]
+        # 9 f32 operations per output value: two taps in y at two columns, then x
+        bnd = bound(crop_fmap_bytes(fmap, boxes, s["pool"]) + nbytes(boxes)
+                    + out_elems * fmap.element_size(), {"f32": 9 * out_elems})
         log(f"[kernel] {dtype} time at B=16, 28x28x256, K=10, P=14: kernel "
             f"{ms * 1e3:.1f} us ({k1 * 1e3:.1f}, {k2 * 1e3:.1f}), plain "
-            f"{plain_ms * 1e3:.1f} us ({p1 * 1e3:.1f}, {p2 * 1e3:.1f})")
-        results[dtype] += [ms, plain_ms]
+            f"{plain_ms * 1e3:.1f} us ({p1 * 1e3:.1f}, {p2 * 1e3:.1f}); bound "
+            f"{bnd[0] * 1e3:.2f} us ({bnd[1]})")
+        results[dtype] += [ms, plain_ms, bnd]
     return results
 
 
@@ -274,26 +351,90 @@ def phase_throughput(model, cfg, dev, rng, smi):
 
 
 def phase_build_int8(pending):
-    """Join the parallel nvcc builds of K1 and K3; print seconds and ptxas."""
+    """Join the parallel nvcc builds of K1 and K3 (and of the parent's, when
+    asked); print seconds and what ptxas says of each kernel: registers,
+    shared memory, spills."""
+    libs = {}
     for name, fut in pending.items():
         lib, seconds = fut.result()
+        libs[name] = lib
+        ptxas = [line.split("ptxas info    : ")[-1].strip()
+                 for line in lib.with_suffix(".log").read_text().splitlines()
+                 if "Used" in line or "spill" in line or "Compiling entry" in line]
+        log(f"[build] {name}: {lib.name} in {seconds:.1f} s; ptxas: " + " | ".join(ptxas))
+    for name in ("fused_ds_block", "fused_mask_branch"):
         _build.load(name)
-        log(f"[build] {lib.name} in {seconds:.1f} s; nvcc: "
-            + lib.with_suffix(".log").read_text().strip().replace("\n", " | "))
+    return libs
 
 
-def timed_build(name):
+def timed_build(name, csrc=_build.CSRC):
     t0 = time.perf_counter()
-    lib = _build.build(name)
+    lib = _build.build(name, csrc)
     return lib, time.perf_counter() - t0
 
 
+class ParentKernels:
+    """K1 and K3 as an earlier commit built them (libraries from copies of
+    its csrc/*.cu), called with that commit's weight layouts: wpw [C, O];
+    w1..w4 [9 Cin, co] and wd [co, 4 co]. For timing against the current
+    kernels only."""
+
+    def __init__(self, ds_lib, mask_lib):
+        self.ds = ctypes.CDLL(str(ds_lib)).fused_ds_block
+        self.ds.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 5
+                            + [ctypes.c_float] * 2 + [ctypes.c_void_p])
+        self.mask = ctypes.CDLL(str(mask_lib)).fused_mask_branch
+        self.mask.argtypes = ([ctypes.c_void_p] * 15 + [ctypes.c_int] * 9
+                              + [ctypes.c_float] * 6 + [ctypes.c_void_p])
+        self.ds.restype = self.mask.restype = ctypes.c_int
+
+    def ds_block(self, x, kdw, dwsb, wpw_co, pwsb, a_pw, s_out):
+        b, h, w, c = x.shape
+        o = wpw_co.shape[1]
+        out = torch.empty((b, h, w, o), dtype=torch.int8 if s_out else torch.float32,
+                          device=x.device)
+        rc = self.ds(x.data_ptr(), kdw.data_ptr(), dwsb.data_ptr(), wpw_co.data_ptr(),
+                     pwsb.data_ptr(), out.data_ptr(), b, h, w, c, o,
+                     ds_block.inv_scale(a_pw), ds_block.inv_scale(s_out) if s_out else 0.0,
+                     torch.cuda.current_stream().cuda_stream)
+        if rc:
+            raise RuntimeError(f"the parent's K1 failed with CUDA error {rc}")
+        return out
+
+    @staticmethod
+    def mask_weights(w, cf):
+        """The current packed weights in the parent's layout."""
+        old = dict(w)
+        old.update({k: v.contiguous() for k, v in unpack_mask_weights(w, cf).items()})
+        return old
+
+    def mask_branch(self, fmap, boxes, classes, w_old, pool, nc):
+        b, h, wd, cf = fmap.shape
+        k = boxes.shape[1]
+        co = w_old["w1"].shape[1]
+        m = b * k * pool * pool
+        fmap = fmap.to(torch.bfloat16).contiguous()
+        out = torch.empty((b, k, 2 * pool, 2 * pool), dtype=torch.float32, device=fmap.device)
+        scratch = [torch.empty((m, c), dtype=torch.int8, device=fmap.device)
+                   for c in (cf, co, co)]
+        ptrs = [fmap, boxes, classes.to(torch.int32), w_old["w1"], w_old["w2"], w_old["w3"],
+                w_old["w4"], w_old["wd"], w_old["wo"][:co, :nc].contiguous(), w_old["wsc"],
+                w_old["bias"], *scratch, out]
+        rc = self.mask(*[t.data_ptr() for t in ptrs], b, h, wd, cf, k, pool, co, nc,
+                       w_old["wsc"].shape[1], *[float(a) for a in w_old["asc"]],
+                       torch.cuda.current_stream().cuda_stream)
+        if rc:
+            raise RuntimeError(f"the parent's K3 failed with CUDA error {rc}")
+        return out
+
+
 def ds_operands(rng, dev, b, h, w, c, o):
-    """Random K1 operands whose activations spread over relu6's range."""
+    """Random K1 operands (wpw packed [O, C]) whose activations spread over
+    relu6's range."""
     t = lambda a: torch.as_tensor(a, device=dev)   # noqa: E731
     x = t(rng.integers(-127, 128, (b, h, w, c), dtype=np.int8))
     kdw = t(rng.integers(-127, 128, (9, c), dtype=np.int8))
-    wpw = t(rng.integers(-127, 128, (c, o), dtype=np.int8))
+    wpw = t(rng.integers(-127, 128, (o, c), dtype=np.int8))
     dwsb = t(np.stack([rng.uniform(0.5, 1.5, c) * 2.0 / 16129,
                        rng.normal(0, 0.5, c)]).astype(np.float32))
     pwsb = t(np.stack([rng.uniform(0.5, 1.5, o) * 2.0 / (np.sqrt(c) * 4400),
@@ -301,14 +442,17 @@ def ds_operands(rng, dev, b, h, w, c, o):
     return x, kdw, dwsb, wpw, pwsb
 
 
-def check_k1(rng, dev, shapes, b, tag):
-    """K1 vs its plain version at each (H, W, C, O) of `shapes`; returns
-    (max |kernel - plain| over all, kernel ms, plain ms summed over the
-    list, i.e. one trunk's K1 calls)."""
-    err, ms, plain_ms = 0.0, 0.0, 0.0
+def check_k1(rng, dev, shapes, b, tag, parent=None):
+    """K1 vs its plain version at each (H, W, C, O) of `shapes`; returns a
+    dict: max |kernel - plain| over all, and the kernel's, the plain
+    version's, the parent's (with `parent`) and the bound's ms summed over
+    the list, i.e. one trunk's K1 calls."""
+    res = {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
+           "parent_ms": 0.0 if parent else None, "bound_by": {"bytes": 0.0, "operations": 0.0}}
     timed = {}
-    for h, w, c, o, int8_out in shapes:
-        if (h, w, c, o, int8_out) not in timed:
+    for shape in shapes:
+        h, w, c, o, int8_out = shape
+        if shape not in timed:
             args = ds_operands(rng, dev, b, h, w, c, o)
             a_pw, s_out = 6.0 / 127, (6.0 / 127 if int8_out else 0.0)
             got = fused_ds_block(*args, a_pw=a_pw, s_out=s_out)
@@ -327,18 +471,43 @@ def check_k1(rng, dev, shapes, b, tag):
                 f"{spread:.3f} of outputs inside the clip range")
             if not (ok and spread > 0.05):
                 raise AssertionError(f"K1 disagrees with its plain version at {h}x{w} {c}->{o}")
-            err = max(err, float(d))
+            res["max_abs_err"] = max(res["max_abs_err"], float(d))
             kernel = lambda: fused_ds_block(*args, a_pw=a_pw, s_out=s_out)             # noqa: E731
             plain = lambda: fused_ds_block_reference(*args, a_pw=a_pw, s_out=s_out)   # noqa: E731
-            p1, k1, k2, p2 = (cuda_ms(plain, 10, 2), cuda_ms(kernel, 20, 3),
-                              cuda_ms(kernel, 20, 3), cuda_ms(plain, 10, 2))
-            timed[(h, w, c, o, int8_out)] = ((k1 + k2) / 2, (p1 + p2) / 2)
+            p1 = cuda_ms(plain, 10, 2)
+            if parent:
+                x, kdw, dwsb, wpw, pwsb = args
+                wpw_co = wpw.t().contiguous()
+                old = lambda: parent.ds_block(x, kdw, dwsb, wpw_co, pwsb, a_pw, s_out)  # noqa: E731
+                if not torch.equal(old(), got):
+                    raise AssertionError(f"the parent's K1 differs from K1 at {h}x{w} {c}->{o}")
+                o1, k1, k2, o2 = (cuda_ms(old, 20, 3), cuda_ms(kernel, 20, 3),
+                                  cuda_ms(kernel, 20, 3), cuda_ms(old, 20, 3))
+            else:
+                k1, k2 = cuda_ms(kernel, 20, 3), cuda_ms(kernel, 20, 3)
+            p2 = cuda_ms(plain, 10, 2)
+            npix = b * h * w
+            bnd = bound(nbytes(*args) + npix * o * (1 if int8_out else 4),
+                        {"int8": 2 * npix * (9 * c + c * o)})
+            timed[shape] = {"ms": (k1 + k2) / 2, "plain_ms": (p1 + p2) / 2, "bound_ms": bnd[0],
+                            "parent_ms": (o1 + o2) / 2 if parent else None, "by": bnd[1]}
+            old_txt = (f", parent {(o1 + o2) / 2 * 1e3:.1f} us ({o1 * 1e3:.1f}, {o2 * 1e3:.1f})"
+                       if parent else "")
             log(f"[kernel] K1 {tag} B={b} {h}x{w} {c}->{o}: kernel {(k1 + k2) / 2 * 1e3:.1f} us "
                 f"({k1 * 1e3:.1f}, {k2 * 1e3:.1f}), plain {(p1 + p2) / 2 * 1e3:.1f} us "
-                f"({p1 * 1e3:.1f}, {p2 * 1e3:.1f})")
-        ms += timed[(h, w, c, o, int8_out)][0]
-        plain_ms += timed[(h, w, c, o, int8_out)][1]
-    return err, ms, plain_ms
+                f"({p1 * 1e3:.1f}, {p2 * 1e3:.1f}){old_txt}; bound {bnd[0] * 1e3:.2f} us "
+                f"({bnd[1]})")
+        for key in ("ms", "plain_ms", "bound_ms", "parent_ms"):
+            if res[key] is not None:
+                res[key] += timed[shape][key]
+        res["bound_by"][timed[shape]["by"]] += timed[shape]["bound_ms"]
+    # the sum's bound is set by whichever kind bounds more of its time
+    res["bound_by"] = max(res["bound_by"], key=res["bound_by"].get)
+    old_txt = f", parent {res['parent_ms']:.4f} ms" if parent else ""
+    log(f"[kernel] K1 {tag} B={b}, the {len(shapes)} calls: kernel {res['ms']:.4f} ms, plain "
+        f"{res['plain_ms']:.4f} ms{old_txt}, bound {res['bound_ms']:.4f} ms (mostly "
+        f"{res['bound_by']})")
+    return res
 
 
 def mask_agreement(got, ref):
@@ -349,9 +518,34 @@ def mask_agreement(got, ref):
     return err.mean().item(), (err > 0.05).float().mean().item(), agree, err.max().item()
 
 
-def check_k3(rng, dev, det, cfg, b, k, tag, time_it=False):
+def check_mask_agreement(got, want, what):
+    mean, share, agree, worst = mask_agreement(got, want)
+    decided = ((want - 0.5).abs() > 0.05).float().mean().item()
+    log(f"[kernel] {what}: mean|d| {mean:.2e} (< 5e-3), share |d|>0.05 {share:.2e} (< 5e-3), "
+        f"0.5-agreement {agree:.6f} (> 0.995) on the {decided:.3f} decided pixels; "
+        f"max|d| {worst:.3e}")
+    if not (torch.isfinite(got).all() and mean < 5e-3 and share < 5e-3 and agree > 0.995):
+        raise AssertionError(f"{what} disagree")
+    return worst
+
+
+def k3_bound(fmap, boxes, classes, w, pool, nc):
+    """K3's bound: its inputs and output once; int8 MACs of the four 3x3
+    convs and the deconv, bf16 MACs of the class conv of each ROI's class."""
+    b, k = boxes.shape[:2]
+    cf, co = fmap.shape[-1], w["w1"].shape[0]
+    m = b * k * pool * pool
+    weights = nbytes(*[w[name] for name in ("w1", "w2", "w3", "w4", "wd", "wsc", "bias")])
+    io = nbytes(fmap, boxes, classes) + weights + co * nc * 2 + b * k * (2 * pool) ** 2 * 4
+    return bound(io, {"int8": 2 * m * (9 * cf * co + 3 * 9 * co * co + 4 * co * co),
+                      "bf16": 2 * m * 4 * co})
+
+
+def check_k3(rng, dev, det, cfg, b, k, tag, time_it=False, parent=None):
     """K3 vs its plain version on the detector's packed weights and trunk
-    fmap, random boxes (two run off the map) and classes."""
+    fmap, random boxes (two run off the map) and classes. Returns a dict of
+    max |d|, and with time_it the kernel's, the plain version's, the
+    parent's (with `parent`) and the bound's ms."""
     images = torch.as_tensor((rng.random((b, *cfg.IMAGE_SHAPE)) * 255).astype(np.uint8),
                              device=dev)
     with torch.inference_mode():
@@ -364,24 +558,38 @@ def check_k3(rng, dev, det, cfg, b, k, tag, time_it=False):
     got = fused_mask_branch(fmap, boxes, classes, w, pool, nc)
     want = fused_mask_branch_reference(fmap, boxes, classes, w, pool, nc)
     torch.cuda.synchronize()
-    mean, share, agree, worst = mask_agreement(got, want)
-    decided = ((want - 0.5).abs() > 0.05).float().mean().item()
-    log(f"[kernel] K3 {tag} B={b} K={k} {tuple(fmap.shape[1:])} nc={nc}: mean|d| {mean:.2e} "
-        f"(< 5e-3), share |d|>0.05 {share:.2e} (< 5e-3), 0.5-agreement {agree:.6f} (> 0.995) "
-        f"on the {decided:.3f} decided pixels; max|d| {worst:.3e}")
-    if not (torch.isfinite(got).all() and mean < 5e-3 and share < 5e-3 and agree > 0.995):
-        raise AssertionError(f"K3 disagrees with its plain version ({tag}, K={k})")
+    what = f"K3 {tag} B={b} K={k} {tuple(fmap.shape[1:])} nc={nc}"
+    res = {"max_abs_err": check_mask_agreement(got, want, what)}
     if not time_it:
-        return worst, None, None
+        return res
     kernel = lambda: fused_mask_branch(fmap, boxes, classes, w, pool, nc)             # noqa: E731
     plain = lambda: fused_mask_branch_reference(fmap, boxes, classes, w, pool, nc)    # noqa: E731
-    p1, k1, k2, p2 = (cuda_ms(plain, 5, 1), cuda_ms(kernel, 10, 2), cuda_ms(kernel, 10, 2),
-                      cuda_ms(plain, 5, 1))
-    rois = b * k
-    log(f"[kernel] K3 {tag} B={b} K={k}: kernel {(k1 + k2) / 2:.3f} ms ({k1:.3f}, {k2:.3f}), "
-        f"plain {(p1 + p2) / 2:.3f} ms ({p1:.3f}, {p2:.3f}); {rois} ROIs, "
-        f"{0.52 * rois / ((k1 + k2) / 2):.1f} T int8 MAC/s (0.52 G MAC per ROI at 224²)")
-    return worst, (k1 + k2) / 2, (p1 + p2) / 2
+    p1 = cuda_ms(plain, 5, 1)
+    if parent:
+        w_old = parent.mask_weights(w, fmap.shape[-1])
+        old = lambda: parent.mask_branch(fmap, boxes, classes, w_old, pool, nc)     # noqa: E731
+        check_mask_agreement(old(), got, f"{what}: the parent's K3 vs K3")
+        o1, k1, k2, o2 = (cuda_ms(old, 10, 2), cuda_ms(kernel, 10, 2), cuda_ms(kernel, 10, 2),
+                          cuda_ms(old, 10, 2))
+        res["parent_ms"] = (o1 + o2) / 2
+    else:
+        k1, k2 = cuda_ms(kernel, 10, 2), cuda_ms(kernel, 10, 2)
+    p2 = cuda_ms(plain, 5, 1)
+    m = b * k * pool * pool
+    gemm = (int_mm_ms(dev, m, 9 * fmap.shape[-1], 256) + 3 * int_mm_ms(dev, m, 9 * 256, 256)
+            + int_mm_ms(dev, m, 256, 1024))
+    bnd = k3_bound(fmap, boxes, classes, w, pool, nc)
+    res.update(ms=(k1 + k2) / 2, plain_ms=(p1 + p2) / 2, bound_ms=bnd[0], bound_by=bnd[1],
+               gemm_core_ms=gemm)
+    rois, kc = b * k, 9 * fmap.shape[-1]
+    old_txt = (f", parent {(o1 + o2) / 2:.3f} ms ({o1:.3f}, {o2:.3f})" if parent else "")
+    log(f"[kernel] K3 {tag} B={b} K={k}: kernel {res['ms']:.3f} ms ({k1:.3f}, {k2:.3f}), "
+        f"plain {res['plain_ms']:.3f} ms ({p1:.3f}, {p2:.3f}){old_txt}; bound {bnd[0]:.4f} ms "
+        f"({bnd[1]}); {rois} ROIs, {0.52 * rois / res['ms']:.1f} T int8 MAC/s (0.52 G MAC "
+        f"per ROI at 224²); torch._int_mm on the same GEMM shapes ([{m}, {kc}] x "
+        f"[{kc}, 256] + 3 x [{m}, 2304] x [2304, 256] + [{m}, 256] x [256, 1024]) "
+        f"{gemm:.3f} ms (a yardstick)")
+    return res
 
 
 def quantized_model(cfg, dev):
@@ -397,19 +605,31 @@ def quantized_model(cfg, dev):
     return model
 
 
-def phase_kernels_int8(rng, dev, model224, cfg224):
-    """K1 and K3 vs plain at the 224² slice's shapes and at 416²."""
-    k1 = check_k1(rng, dev, DS_224, BATCH, "224")
+def phase_kernels_int8(rng, dev, model224, cfg224, parent=None):
+    """K1 and K3 vs plain at the 224² slice's shapes (batch 16 and 128) and
+    at 416²; the GEMM-core yardstick of K1's widest pointwise product."""
+    k1 = check_k1(rng, dev, DS_224, BATCH, "224", parent)
+    k1["b128"] = check_k1(rng, dev, DS_224, THROUGHPUT_BATCH, "224", parent)
     check_k1(rng, dev, DS_416, 4, "416")
-    k3 = check_k3(rng, dev, model224._qdet, cfg224, BATCH, cfg224.DETECTION_MAX_INSTANCES,
-                  "224", time_it=True)
+    for b, key in ((BATCH, None), (THROUGHPUT_BATCH, "b128")):
+        gemm = int_mm_ms(dev, b * 7 * 7, 1024, 1024)
+        log(f"[kernel] K1 yardstick: torch._int_mm [{b * 49}, 1024] x [1024, 1024] (the "
+            f"7x7 block's pointwise product) {gemm * 1e3:.1f} us")
+        (k1[key] if key else k1)["gemm_core_ms"] = gemm
+    k = cfg224.DETECTION_MAX_INSTANCES
+    k3 = check_k3(rng, dev, model224._qdet, cfg224, BATCH, k, "224", True, parent)
+    k3["b128"] = check_k3(rng, dev, model224._qdet, cfg224, THROUGHPUT_BATCH, k, "224", True,
+                          parent)
     check_k3(rng, dev, model224._qdet, cfg224, 3, 47, "224")   # a prime K, ragged M
     cfg416 = Coco416Config()
     model416 = quantized_model(cfg416, dev)
-    k3_416 = check_k3(rng, dev, model416._qdet, cfg416, 3, cfg416.MASK_TOP_K, "416")
+    k3_416 = check_k3(rng, dev, model416._qdet, cfg416, 3, cfg416.MASK_TOP_K, "416", True)
     del model416
     torch.cuda.empty_cache()
-    return k1, (max(k3[0], k3_416[0]), k3[1], k3[2])
+    k3["max_abs_err"] = max(k3["max_abs_err"], k3["b128"]["max_abs_err"],
+                            k3_416["max_abs_err"])
+    k3["416"] = k3_416
+    return k1, k3
 
 
 def phase_int8_slice(model, float_model, cfg, images, counts):
@@ -463,21 +683,43 @@ def phase_int8_slice(model, float_model, cfg, images, counts):
         f"detection (same class, IoU >= 0.5; recorded only, random weights)")
 
 
-def phase_int8_throughput(model, cfg, dev, rng, smi, bf16_ms):
+def phase_int8_throughput(model, cfg, dev, rng, smi, bf16_ms, k1_ms, k3_ms):
+    """Fused and chained int8 detect_batch at batch 128, and the fused one's
+    split: the trunk alone (with K1), K1's and K3's times from phase 8, and
+    the rest (decode, NMS, select, paste)."""
     images = torch.as_tensor((rng.random((128, *cfg.IMAGE_SHAPE)) * 255).astype(np.uint8),
                              device=dev)
     det = model._qdet
     fused = lambda: det.detect_outputs(images, fused_mask=True, fused_ds=True)      # noqa: E731
     chained = lambda: det.detect_outputs(images, fused_mask=False, fused_ds=False)  # noqa: E731
+    x = images_f32(images)
     torch.cuda.reset_peak_memory_stats()
     f1, c1, c2, f2 = (cuda_ms(fused, 5, 2), cuda_ms(chained, 5, 2), cuda_ms(chained, 5, 2),
                       cuda_ms(fused, 5, 2))
+    with torch.inference_mode():
+        trunk = cuda_ms(lambda: det.trunk(x, fused_ds=True), 5, 2)
     f, c = (f1 + f2) / 2, (c1 + c2) / 2
     log(f"[throughput] int8 detect_batch B=128 (uint8 input on device): fused K1+K3 "
         f"{f:.3f} ms/batch ({f1:.3f}, {f2:.3f}), {128e3 / f:.1f} img/s; chained "
         f"{c:.3f} ms/batch ({c1:.3f}, {c2:.3f}), {128e3 / c:.1f} img/s; bf16 float path "
         f"{bf16_ms:.3f} ms/batch (phase 6); peak memory "
         f"{torch.cuda.max_memory_allocated() / 2**20:.0f} MiB on {smi} (recorded, not claimed)")
+    log(f"[throughput] fused int8 split at B=128: trunk {trunk:.3f} ms (K1's ten calls "
+        f"{k1_ms:.3f} ms, the plain int8 layers ~{trunk - k1_ms:.3f}), mask branch K3 "
+        f"{k3_ms:.3f} ms (phase 8, K=10), the rest ~{f - trunk - k3_ms:.3f} ms")
+    # device time under the profiler against the unprofiled wall time: the
+    # share of the batch the device idles (the profiler stretches the host)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(3):
+            fused()
+        torch.cuda.synchronize()
+    events = prof.key_averages()
+    busy = sum(e.device_time_total for e in events) / 3e3
+    top = sorted(events, key=lambda e: -e.device_time_total)[:6]
+    log(f"[throughput] torch.profiler, 3 fused int8 batches: {busy:.3f} ms of device time a "
+        f"batch against {f:.3f} ms unprofiled, the device idle ~{1 - busy / f:.1%}; most "
+        f"device time: " + "; ".join(f"{e.key[:48]} {e.device_time_total / 3e3:.3f} ms "
+                                     f"({e.count // 3} a batch)" for e in top))
 
 # ---- phases T1-T2: the training path ----------------------------------------
 
@@ -492,8 +734,8 @@ def backward_boxes(rng, b, k):
 
 
 def phase_train_kernel(dev, rng):
-    """K2 backward vs its plain version; returns (max_abs_err, ms, plain_ms)
-    at the training shape."""
+    """K2 backward vs its plain version; returns (max_abs_err, ms, plain_ms,
+    (bound_ms, bound_by)) at the training shape."""
     result = None
     for s in BWD_SHAPES:
         boxes = torch.tensor(backward_boxes(rng, s["b"], s["k"]), device=dev)
@@ -509,13 +751,16 @@ def phase_train_kernel(dev, rng):
         plain = lambda: crop_and_resize_backward(g, boxes, hw)     # noqa: E731
         p1, k1, k2, p2 = cuda_ms(plain, 20), cuda_ms(kernel, 20), cuda_ms(kernel, 20), cuda_ms(plain, 20)
         tag = f"B={s['b']}, K={s['k']}, {s['h']}x{s['w']}x{s['c']}, P={s['pool']}"
+        # 9 f32 operations per gradient value, as the forward's per output value
+        bnd = bound(nbytes(g, boxes, want), {"f32": 9 * g.numel()})
         log(f"[train-kernel] K2 backward f32 {tag}: max|kernel-plain| = {err:.3e}, / max|plain| "
             f"= {ratio:.3e} (limit {BWD_TOL}); kernel {(k1 + k2) / 2 * 1e3:.1f} us ({k1 * 1e3:.1f}, "
-            f"{k2 * 1e3:.1f}), plain {(p1 + p2) / 2 * 1e3:.1f} us ({p1 * 1e3:.1f}, {p2 * 1e3:.1f})")
+            f"{k2 * 1e3:.1f}), plain {(p1 + p2) / 2 * 1e3:.1f} us ({p1 * 1e3:.1f}, {p2 * 1e3:.1f}); "
+            f"bound {bnd[0] * 1e3:.2f} us ({bnd[1]})")
         if not (torch.isfinite(got).all() and ratio <= BWD_TOL):
             raise AssertionError(f"the K2 backward disagrees with its plain version ({tag})")
         if result is None:
-            result = (err, (k1 + k2) / 2, (p1 + p2) / 2)
+            result = (err, (k1 + k2) / 2, (p1 + p2) / 2, bnd)
     empty = crop_rois_backward(torch.zeros((2, 0, 14, 14, 8), device=dev),
                                torch.zeros((2, 0, 4), device=dev), (4, 4))
     if empty.shape != (2, 4, 4, 8) or empty.any():
@@ -655,7 +900,20 @@ def phase_train(dev, smi, counts, workdir):
 
 
 
+def kernel_line(name, source, replaces, launches, err, ms, plain_ms, bnd, **extra):
+    """One entry of the kernels JSON line; launches: {path: count}."""
+    return {"name": name, "route": "cuda", "source": f"mask_yolo_tpu_torch/csrc/{source}",
+            "replaces": replaces, "launches": sum(launches.values()),
+            "launches_by_path": launches, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bnd[0], "bound_by": bnd[1], "library_ms": None, **extra}
+
+
 def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--parent-csrc", type=Path, default=None,
+                    help="a directory with an earlier commit's fused_ds_block.cu and "
+                         "fused_mask_branch.cu, timed against the current kernels")
+    args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this check runs only on a GPU", file=sys.stderr)
         return 1
@@ -668,10 +926,14 @@ def main() -> int:
     log(f"[device] {smi}; torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"{torch.cuda.device_count()} device(s); TF32 off for cuDNN and matmul")
 
-    # K1 and K3 compile (one nvcc each, in parallel) while phases 2-6 run
-    pool = ThreadPoolExecutor(max_workers=2)
-    pending = {name: pool.submit(timed_build, name)
-               for name in ("fused_ds_block", "fused_mask_branch")}
+    # K1 and K3 (and the parent's, when asked) compile, one nvcc each, in
+    # parallel with the crop kernel's build and phases 2-6
+    int8_kernels = ("fused_ds_block", "fused_mask_branch")
+    pool = ThreadPoolExecutor(max_workers=4)
+    pending = {name: pool.submit(timed_build, name) for name in int8_kernels}
+    if args.parent_csrc:
+        pending.update({f"parent {name}": pool.submit(timed_build, name, args.parent_csrc)
+                        for name in int8_kernels})
     t0 = time.perf_counter()
     lib = _build.build("crop_rois")
     _build.load("crop_rois")
@@ -683,23 +945,25 @@ def main() -> int:
     kernel_bwd = phase_train_kernel(dev, rng)
 
     images = (rng.random((BATCH, *ShapesConfig.IMAGE_SHAPE)) * 255).astype(np.uint8)
-    counts = {}
-    model, cfg = phase_slice("bfloat16", dev, images, counts)
-    phase_slice("float32", dev, images, counts)
-    phase_serve(model, cfg, rng, counts)
+    float_counts = {}
+    model, cfg = phase_slice("bfloat16", dev, images, float_counts)
+    phase_slice("float32", dev, images, float_counts)
+    phase_serve(model, cfg, rng, float_counts)
     bf16_ms = phase_throughput(model, cfg, dev, rng, smi)
-    crop_launches = sum(counts["crop_rois"])
 
-    phase_build_int8(pending)
+    libs = phase_build_int8(pending)
     pool.shutdown()
+    parent = (ParentKernels(libs["parent fused_ds_block"], libs["parent fused_mask_branch"])
+              if args.parent_csrc else None)
     cfg8 = Int8Config()
     model8 = quantized_model(cfg8, dev)
-    k1, k3 = phase_kernels_int8(rng, dev, model8, cfg8)
-    counts = {}
-    phase_int8_slice(model8, model, cfg8, images, counts)
-    phase_serve(model8, cfg8, rng, counts, n=16, expect=("fused_ds_block", "fused_mask_branch"),
-                tag="serve int8")
-    phase_int8_throughput(model8, cfg8, dev, rng, smi, bf16_ms)
+    k1, k3 = phase_kernels_int8(rng, dev, model8, cfg8, parent)
+    int8_counts = {}
+    phase_int8_slice(model8, model, cfg8, images, int8_counts)
+    phase_serve(model8, cfg8, rng, int8_counts, n=16,
+                expect=("fused_ds_block", "fused_mask_branch"), tag="serve int8")
+    phase_int8_throughput(model8, cfg8, dev, rng, smi, bf16_ms, k1["b128"]["ms"],
+                          k3["b128"]["ms"])
     del model8
     torch.cuda.empty_cache()
 
@@ -710,30 +974,34 @@ def main() -> int:
         phase_train(dev, smi, train_counts, workdir)
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
-    crop_launches += sum(train_counts["crop_rois"])
 
-    err, ms, plain_ms = kernel[torch.bfloat16]
+    def launches(name):
+        return {path: sum(counts.get(name, [])) for path, counts in (
+            ("float_detect", float_counts), ("int8_detect", int8_counts),
+            ("train", train_counts))}
+
+    err, ms, plain_ms, bnd = kernel[torch.bfloat16]
+    b128 = lambda r: {key: r.get(key) for key in (                          # noqa: E731
+        "ms", "plain_ms", "bound_ms", "parent_ms", "gemm_core_ms")}
     print(smi)
-    print(json.dumps({"kernels": [{
-        "name": "crop_rois", "route": "cuda",
-        "source": "mask_yolo_tpu_torch/csrc/crop_rois.cu",
-        "replaces": "mask_yolo_tpu/ops/pallas_crop.py:92",
-        "launches": crop_launches, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms}, {
-        "name": "crop_rois_backward", "route": "cuda",
-        "source": "mask_yolo_tpu_torch/csrc/crop_rois.cu",
-        "replaces": "mask_yolo_tpu/ops/pallas_crop.py:92",
-        "launches": sum(train_counts["crop_rois_backward"]), "max_abs_err": kernel_bwd[0],
-        "ms": kernel_bwd[1], "plain_ms": kernel_bwd[2]}, {
-        "name": "fused_ds_block", "route": "cuda",
-        "source": "mask_yolo_tpu_torch/csrc/fused_ds_block.cu",
-        "replaces": "mask_yolo_tpu/ops/pallas_ds.py:92",
-        "launches": sum(counts["fused_ds_block"]), "max_abs_err": k1[0], "ms": k1[1],
-        "plain_ms": k1[2]}, {
-        "name": "fused_mask_branch", "route": "cuda",
-        "source": "mask_yolo_tpu_torch/csrc/fused_mask_branch.cu",
-        "replaces": "mask_yolo_tpu/ops/pallas_mask.py:233",
-        "launches": sum(counts["fused_mask_branch"]), "max_abs_err": k3[0], "ms": k3[1],
-        "plain_ms": k3[2]}]}))
+    print(json.dumps({"kernels": [
+        kernel_line("crop_rois", "crop_rois.cu", "mask_yolo_tpu/ops/pallas_crop.py:92",
+                    launches("crop_rois"), err, ms, plain_ms, bnd,
+                    at="bf16, B=16, 28x28x256, K=10, P=14"),
+        kernel_line("crop_rois_backward", "crop_rois.cu", "mask_yolo_tpu/ops/pallas_crop.py:92",
+                    launches("crop_rois_backward"), *kernel_bwd,
+                    at="f32, B=16, K=32, 28x28x256, P=14"),
+        kernel_line("fused_ds_block", "fused_ds_block.cu", "mask_yolo_tpu/ops/pallas_ds.py:92",
+                    launches("fused_ds_block"), k1["max_abs_err"], k1["ms"], k1["plain_ms"],
+                    (k1["bound_ms"], k1["bound_by"]), at="one trunk's 10 calls, B=16",
+                    parent_ms=k1["parent_ms"], gemm_core_ms=k1["gemm_core_ms"],
+                    b128=b128(k1["b128"])),
+        kernel_line("fused_mask_branch", "fused_mask_branch.cu",
+                    "mask_yolo_tpu/ops/pallas_mask.py:233", launches("fused_mask_branch"),
+                    k3["max_abs_err"], k3["ms"], k3["plain_ms"], (k3["bound_ms"], k3["bound_by"]),
+                    at="B=16, K=10, 28x28x256", parent_ms=k3.get("parent_ms"),
+                    gemm_core_ms=k3["gemm_core_ms"], b128=b128(k3["b128"]),
+                    coco416=b128(k3["416"]))]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

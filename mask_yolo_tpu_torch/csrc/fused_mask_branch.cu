@@ -6,39 +6,59 @@
 // wrapper is ops/mask_fused.py::fused_mask_branch.
 //
 //   fmap    [B, H, W, Cf]  bf16        boxes [B*K, 4] f32   classes [B*K] int32
-//   w1      [9*Cf, co]     int8        w2..w4 [9*co, co] int8 (rows (di, dj, ci))
-//   wd      [co, 4*co]     int8        deconv as a 1x1 conv, columns (di, dj, o)
+//   w1      [co, 9*Cf]     int8        w2..w4 [co, 9*co] int8: K-contiguous rows,
+//                                      k in (di, dj, ci) order, 128-byte swizzled
+//   wd      [4*co, co]     int8        deconv as a 1x1 conv, rows (di, dj, o), swizzled
 //   wout    [co, nc]       bf16        the class conv (block 0 of the TPU kernel's wo)
 //   wsc     [5, ld], bias [6, ld] f32  per-channel weight scales and biases
 //   asc0..5                f32         activation scales
 //   out     [B*K, 2P, 2P]  f32         each ROI's class mask (bf16 values)
 //
+// The swizzle (ops/mask_fused.py::swizzle_nk): within each 128-byte block of
+// a weight row n, the 16-byte chunk c is stored at chunk c ^ (n & 7). A
+// shared-memory tile row of 128 bytes holds its chunks in the same order, so
+// a B tile is a straight 16-byte copy, and the tiles have the layout that
+// wgmma's 128-byte-swizzle descriptors read (8-row atoms of 1,024 bytes).
+//
 // The TPU kernel kept 2.7 MB of weights and a block of ROIs resident in
 // ~5 MB of VMEM and ran one image per grid step. A Hopper block has 227 KB,
-// and a block per ROI would re-read the weights for every ROI (~3.4 GB of
-// L2 reads for a batch of 128 at K = 10). So each layer here is an
-// implicit-GEMM int8 kernel over all M = B*K*P*P crop pixels: every weight
-// tile is reused across the ROIs of a 128-row block. What bounds it is
-// the int8 MAC count, 0.52 G per ROI at 224² (four 3x3 256->256 convs
-// over 14x14 and the 256->1024 deconv); the intermediates (M x 256 int8,
-// 64 MB at B = 128) go through wrapper-allocated scratch once per layer.
+// and a block per ROI would re-read the weights for every ROI. So each layer
+// here is an implicit-GEMM int8 kernel over all M = B*K*P*P crop pixels:
+// every weight tile is reused across the ROIs of a 128-row block. What
+// bounds it is the int8 MAC count, 0.52 G per ROI at 224² (four 3x3
+// 256->256 convs over 14x14 and the 256->1024 deconv); the intermediates
+// (M x 256 int8, 64 MB at B = 128) go through wrapper-allocated scratch once
+// per layer.
 //
 // Six launches on the caller's stream, one C entry point:
 //   1. crop_quant: bilinear crop of each ROI (both contractions rounded to
 //      bf16 exactly like the plain version's two bf16 matmuls, since each
 //      has two non-zero taps) and int8 at asc0 -> x0 [M, Cf];
-//   2-5. conv3x3: implicit GEMM, im2col gathered from each ROI's
-//      zero-padded P x P tile; mma.sync m16n8k32 s8 with int32 accumulation;
-//      epilogue acc*(wsc*asc_in) + bias, relu, int8 at asc_out;
+//   2-5. conv3x3: implicit GEMM over each ROI's zero-padded P x P tile;
 //   6. deconv + class conv: the 1x1 GEMM to 4*co with its epilogue fused
 //      with the int8 requantize at asc5, the bf16 class conv of the ROI's
 //      own class only (bf16(y_q)*bf16(asc5) times bf16 wout, f32 sums), the
-//      sigmoid, the bf16 rounding and the depth-to-space store. One block
-//      covers 64 rows and one (di, dj) block of 256 columns, so the class
-//      dot product reduces inside the block, in a fixed order.
+//      sigmoid, the bf16 rounding and the depth-to-space store.
+//
+// The GEMM (launches 2-6): a block is BM = 128 rows x BN = 256 columns (all
+// of co, so each A tile is read once), two warpgroups of 64 rows x 256
+// columns, whose products are wgmma.mma_async m64n256k32 s8 x s8 -> s32
+// with both operands read from shared memory through descriptors (128
+// accumulator registers a thread). A k-step is BK = 128 bytes, one 3x3 tap
+// x 128 channels. A 4-stage ring of (A, B) tiles in shared memory (48 KB a
+// stage) is filled by cp.async.cg 16-byte copies: A rows gathered from each
+// row's shifted pixel (its (roi, y, x) computed once per block), zero-filled
+// at the ROI tile's edge; B rows straight from the packed weights. The
+// copies run two k-steps ahead of the products, and one k-step's products
+// stay in flight while the next is issued (wgmma.wait_group 1). Each
+// thread fences its copies into the async proxy before the barrier that
+// hands a stage to the tensor cores. The conv epilogue stages the int8
+// tile in shared memory and stores 16-byte rows. What bounds it at the
+// moment is less the tensor cores than the L2: every block reads 48 KB a
+// k-step (A and B) for 4.2 M MACs.
 // Every f32 multiply-add of the int8 epilogues uses _rn intrinsics (no FMA
 // contraction) and __float2int_rn (half to even), as the plain version.
-// Needs Cf % 32 == 0 and co == 256 (the wrapper checks).
+// Needs Cf % 128 == 0 and co == 256 (the wrapper checks).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -47,17 +67,29 @@
 
 namespace {
 
-constexpr int THREADS = 256;  // 8 warps, each a 32 x 64 tile
-constexpr int BK = 32;
-constexpr int STRIDE = BK + 16;  // shared-memory row, bytes (bank spread)
+constexpr int THREADS = 256;                  // two warpgroups, 64 rows each
+constexpr int BM = 128, BN = 256, BK = 128;   // BK in bytes: one tap x 128 channels
+constexpr int STAGES = 4;
+constexpr int A_TILE = BM * BK;               // 16 KB
+constexpr int STAGE_BYTES = A_TILE + BN * BK; // 48 KB
+constexpr int SMEM_BYTES = STAGES * STAGE_BYTES + 1024;  // + room to align to 1024
+constexpr int C_STRIDE = BN + 16;             // epilogue staging row, bytes
 
-__device__ __forceinline__ void mma_s8(int (&c)[4], const uint32_t (&a)[4],
-                                       const uint32_t (&b)[2]) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+// 16 bytes global -> shared; zero-filled when !valid (src must still be a
+// valid address)
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
+               "r"(valid ? 16 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
 __device__ __forceinline__ int8_t requant(float y, float inv) {
@@ -161,7 +193,7 @@ __global__ void crop_quant_kernel(const __nv_bfloat16* __restrict__ fmap,
 
 struct GemmArgs {
   const int8_t* a;      // [M, Cin] int8 activations (ROI tiles of P x P rows)
-  const int8_t* w;      // [KS*KS*Cin, N] int8
+  const int8_t* w;      // [N, KS*KS*Cin] int8, swizzled
   const float* wsc;     // [N]
   const float* bias;    // [N]
   int M, N, Cin, P;
@@ -175,160 +207,223 @@ struct GemmArgs {
   float* masks;                 // [M / P^2, 2P, 2P]
 };
 
-// WM x WN warps, each a 32 x 64 tile: BM = 32*WM rows, BN = 64*WN columns.
-// KS = 3: a 3x3 SAME conv over each ROI's tile; KS = 1: a 1x1 conv.
-// SELECT: the deconv epilogue (BN must be the deconv's co, blockIdx.y the
-// (di, dj) block).
-template <int KS, int WM, int WN, bool SELECT>
-__global__ void __launch_bounds__(THREADS) gemm_kernel(GemmArgs g) {
-  constexpr int BM = 32 * WM, BN = 64 * WN;
-  __shared__ __align__(16) int8_t As[BM * STRIDE];
-  __shared__ __align__(16) int8_t Bs[BN * STRIDE];
-  __shared__ float red[SELECT ? WN * BM : 1];
+// Shared-memory descriptor of a K-major operand tile whose rows are 128
+// bytes, stored in 8-row groups of 1024 bytes with the 128-byte swizzle
+// (16-byte chunk c of row r at chunk c ^ (r & 7)); `addr` must sit on a
+// 1024-byte boundary, plus the k offset inside the row.
+__device__ __forceinline__ uint64_t smem_desc(uint32_t addr) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | (static_cast<uint64_t>(1) << 16) |
+         (static_cast<uint64_t>(1024 >> 4) << 32) | (static_cast<uint64_t>(1) << 62);
+}
 
+// D[64 x 256] (+)= A[64 x 32] * B[256 x 32]^T, s8 x s8 -> s32, both operands
+// K-major in shared memory (128-byte swizzle), given by their descriptors.
+// Thread (warp w, lane) of the warpgroup holds
+// d[4 j + 2 h + e] = D[16 w + lane / 4 + 8 h][8 j + 2 (lane % 4) + e].
+__device__ __forceinline__ void wgmma_s8_64x256x32(int (&d)[128], uint64_t desc_a,
+                                                   uint64_t desc_b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k32.s32.s8.s8 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
+      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
+      "%60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71, "
+      "%72, %73, %74, %75, %76, %77, %78, %79, %80, %81, %82, %83, "
+      "%84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "
+      "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, "
+      "%108, %109, %110, %111, %112, %113, %114, %115, %116, %117, %118, %119, "
+      "%120, %121, %122, %123, %124, %125, %126, %127}, %128, %129, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]),
+        "+r"(d[7]), "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]),
+        "+r"(d[14]), "+r"(d[15]), "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]), "+r"(d[20]),
+        "+r"(d[21]), "+r"(d[22]), "+r"(d[23]), "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]),
+        "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31]), "+r"(d[32]), "+r"(d[33]), "+r"(d[34]),
+        "+r"(d[35]), "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]), "+r"(d[40]), "+r"(d[41]),
+        "+r"(d[42]), "+r"(d[43]), "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47]), "+r"(d[48]),
+        "+r"(d[49]), "+r"(d[50]), "+r"(d[51]), "+r"(d[52]), "+r"(d[53]), "+r"(d[54]), "+r"(d[55]),
+        "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]), "+r"(d[60]), "+r"(d[61]), "+r"(d[62]),
+        "+r"(d[63]), "+r"(d[64]), "+r"(d[65]), "+r"(d[66]), "+r"(d[67]), "+r"(d[68]), "+r"(d[69]),
+        "+r"(d[70]), "+r"(d[71]), "+r"(d[72]), "+r"(d[73]), "+r"(d[74]), "+r"(d[75]), "+r"(d[76]),
+        "+r"(d[77]), "+r"(d[78]), "+r"(d[79]), "+r"(d[80]), "+r"(d[81]), "+r"(d[82]), "+r"(d[83]),
+        "+r"(d[84]), "+r"(d[85]), "+r"(d[86]), "+r"(d[87]), "+r"(d[88]), "+r"(d[89]), "+r"(d[90]),
+        "+r"(d[91]), "+r"(d[92]), "+r"(d[93]), "+r"(d[94]), "+r"(d[95]), "+r"(d[96]), "+r"(d[97]),
+        "+r"(d[98]), "+r"(d[99]), "+r"(d[100]), "+r"(d[101]), "+r"(d[102]), "+r"(d[103]), "+r"(d[104]),
+        "+r"(d[105]), "+r"(d[106]), "+r"(d[107]), "+r"(d[108]), "+r"(d[109]), "+r"(d[110]), "+r"(d[111]),
+        "+r"(d[112]), "+r"(d[113]), "+r"(d[114]), "+r"(d[115]), "+r"(d[116]), "+r"(d[117]), "+r"(d[118]),
+        "+r"(d[119]), "+r"(d[120]), "+r"(d[121]), "+r"(d[122]), "+r"(d[123]), "+r"(d[124]), "+r"(d[125]),
+        "+r"(d[126]), "+r"(d[127])
+      : "l"(desc_a), "l"(desc_b), "r"(accumulate));
+}
+
+// KS = 3: a 3x3 SAME conv over each ROI's tile; KS = 1: a 1x1 conv.
+// SELECT: the deconv epilogue (blockIdx.y is the (di, dj) block of 256
+// columns).
+template <int KS, bool SELECT>
+__global__ void __launch_bounds__(THREADS, 1) gemm_kernel(GemmArgs g) {
+  extern __shared__ __align__(128) int8_t smem_raw[];
+  const uint32_t raw = static_cast<uint32_t>(__cvta_generic_to_shared(smem_raw));
+  const uint32_t sbase = (raw + 1023u) & ~1023u;  // the swizzle's 1024-byte atoms
+  int8_t* smem = smem_raw + (sbase - raw);
   const int tid = threadIdx.x;
   const int m0 = blockIdx.x * BM;
   const int n0 = blockIdx.y * BN;
   const int PP = g.P * g.P;
   const int kdim = KS * KS * g.Cin;
+  const int nk = kdim / BK;
   const int warp = tid / 32, lane = tid % 32;
-  const int wm = warp / WN, wn = warp % WN;
+  const int wg = warp / 4, wi = warp % 4;  // warpgroup: rows 64 wg .. 64 wg + 63
   const int gq = lane >> 2, t4 = lane & 3;
 
-  int acc[2][8][4];
+  // Copies: thread tid moves 16-byte chunk tid & 7 of rows (tid >> 3) + 32 j
+  // (4 rows of A, 8 of B); all its rows share row & 7, hence the swizzle.
+  const int chunk = tid & 7, row0 = tid >> 3;
+  const int sw = (chunk ^ (row0 & 7)) << 4;
+  int a_base[4], a_y[4], a_x[4];  // roi * P^2 (3x3) or the row (1x1); -1 past M
 #pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 8; ++j)
-#pragma unroll
-      for (int v = 0; v < 4; ++v) acc[i][j][v] = 0;
-
-  for (int k0 = 0; k0 < kdim; k0 += BK) {
-    const int tap = k0 / g.Cin, ci0 = k0 % g.Cin;
-    const int di = tap / KS - KS / 2, dj = tap % KS - KS / 2;
-    for (int i = tid; i < BM * 2; i += THREADS) {  // A: 32 bytes per row
-      const int r = i >> 1, half = i & 1;
-      const int m = m0 + r;
-      int4 v = make_int4(0, 0, 0, 0);
-      if (m < g.M) {
-        long long src = -1;
-        if (KS == 1) {
-          src = static_cast<long long>(m) * g.Cin;
-        } else {
-          const int roi = m / PP, pix = m % PP;
-          const int yy = pix / g.P + di, xx = pix % g.P + dj;
-          if (yy >= 0 && yy < g.P && xx >= 0 && xx < g.P)
-            src = (static_cast<long long>(roi) * PP + yy * g.P + xx) * g.Cin;
-        }
-        if (src >= 0) v = __ldg(reinterpret_cast<const int4*>(g.a + src + ci0 + half * 16));
+  for (int j = 0; j < 4; ++j) {
+    const int m = m0 + row0 + 32 * j;
+    a_base[j] = -1;
+    a_y[j] = a_x[j] = 0;
+    if (m < g.M) {
+      if (KS == 1) {
+        a_base[j] = m;
+      } else {
+        const int roi = m / PP, pix = m - roi * PP;
+        a_base[j] = roi * PP;
+        a_y[j] = pix / g.P;
+        a_x[j] = pix - a_y[j] * g.P;
       }
-      *reinterpret_cast<int4*>(As + r * STRIDE + half * 16) = v;
     }
-    for (int i = tid; i < BK * (BN / 16); i += THREADS) {  // B: transpose to [n][k]
-      const int kr = i / (BN / 16), nc = (i % (BN / 16)) * 16;
-      int4 v = make_int4(0, 0, 0, 0);
-      if (n0 + nc < g.N)
-        v = __ldg(reinterpret_cast<const int4*>(g.w + static_cast<long long>(k0 + kr) * g.N + n0 + nc));
-      const int8_t* bv = reinterpret_cast<const int8_t*>(&v);
-#pragma unroll
-      for (int j = 0; j < 16; ++j) Bs[(nc + j) * STRIDE + kr] = bv[j];
-    }
-    __syncthreads();
-    uint32_t a[2][4], b[8][2];
-#pragma unroll
-    for (int mt = 0; mt < 2; ++mt) {
-      const int8_t* base = As + (wm * 32 + mt * 16 + gq) * STRIDE + t4 * 4;
-      a[mt][0] = *reinterpret_cast<const uint32_t*>(base);
-      a[mt][1] = *reinterpret_cast<const uint32_t*>(base + 8 * STRIDE);
-      a[mt][2] = *reinterpret_cast<const uint32_t*>(base + 16);
-      a[mt][3] = *reinterpret_cast<const uint32_t*>(base + 8 * STRIDE + 16);
-    }
-#pragma unroll
-    for (int nt = 0; nt < 8; ++nt) {
-      const int8_t* base = Bs + (wn * 64 + nt * 8 + gq) * STRIDE + t4 * 4;
-      b[nt][0] = *reinterpret_cast<const uint32_t*>(base);
-      b[nt][1] = *reinterpret_cast<const uint32_t*>(base + 16);
-    }
-#pragma unroll
-    for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-      for (int nt = 0; nt < 8; ++nt) mma_s8(acc[mt][nt], a[mt], b[nt]);
-    __syncthreads();
   }
 
-  if (!SELECT) {
+  auto load_stage = [&](int stage, int ks) {
+    const int k0 = ks * BK;
+    const int tap = k0 / g.Cin, ci = k0 - tap * g.Cin;
+    const int di = tap / KS - KS / 2, dj = tap % KS - KS / 2;
+    const uint32_t as = sbase + stage * STAGE_BYTES, bs = as + A_TILE;
 #pragma unroll
-    for (int mt = 0; mt < 2; ++mt)
+    for (int j = 0; j < 4; ++j) {
+      int pix = a_base[j];
+      bool ok = pix >= 0;
+      if (KS == 3) {
+        const int yy = a_y[j] + di, xx = a_x[j] + dj;
+        ok = ok && yy >= 0 && yy < g.P && xx >= 0 && xx < g.P;
+        pix += yy * g.P + xx;
+      }
+      const int8_t* src = ok ? g.a + static_cast<long long>(pix) * g.Cin + ci + chunk * 16 : g.a;
+      cp_async16(as + (row0 + 32 * j) * BK + sw, src, ok);
+    }
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int n = row0 + 32 * j;
+      cp_async16(bs + n * BK + chunk * 16,
+                 g.w + static_cast<long long>(n0 + n) * kdim + k0 + chunk * 16, true);
+    }
+  };
+
+  int acc[128];
+#pragma unroll
+  for (int i = 0; i < 128; ++i) acc[i] = 0;
+
+  // Loads run two k-steps ahead; the products of one k-step stay in flight
+  // while the next is issued, so a stage is refilled only two k-steps after
+  // its products were issued, once every warpgroup has waited for them.
+#pragma unroll
+  for (int s = 0; s < STAGES - 2; ++s) {
+    if (s < nk) load_stage(s, s);
+    cp_async_commit();
+  }
+
+  for (int ks = 0; ks < nk; ++ks) {
+    cp_async_wait<STAGES - 3>();
+    // this thread's copies of stage ks are visible to the tensor cores' reads
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    __syncthreads();  // stage ks has landed; the products of k-step ks - 2 are done
+    {
+      const int nxt = ks + STAGES - 2;
+      if (nxt < nk) load_stage(nxt % STAGES, nxt);
+      cp_async_commit();
+    }
+    const uint32_t st = sbase + (ks % STAGES) * STAGE_BYTES;
+    asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+#pragma unroll
+    for (int kk = 0; kk < BK / 32; ++kk)
+      wgmma_s8_64x256x32(acc, smem_desc(st + wg * 64 * BK + 32 * kk),
+                         smem_desc(st + A_TILE + 32 * kk), 1);
+    asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+    asm volatile("wgmma.wait_group.sync.aligned 1;\n" ::: "memory");
+#pragma unroll
+    for (int i = 0; i < 128; ++i) asm volatile("" : "+r"(acc[i])::"memory");
+  }
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+#pragma unroll
+  for (int i = 0; i < 128; ++i) asm volatile("" : "+r"(acc[i])::"memory");
+  cp_async_wait<0>();
+  __syncthreads();  // the ring is free: the epilogue reuses it
+
+  if (!SELECT) {
+    int8_t* cs = smem;  // [BM][C_STRIDE]
+#pragma unroll
+    for (int j = 0; j < 32; ++j) {
+      const int c = 8 * j + t4 * 2;
+      const float s0 = __fmul_rn(__ldg(g.wsc + n0 + c), g.asc_in);
+      const float s1 = __fmul_rn(__ldg(g.wsc + n0 + c + 1), g.asc_in);
+      const float b0 = __ldg(g.bias + n0 + c), b1 = __ldg(g.bias + n0 + c + 1);
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
-        const int m = m0 + wm * 32 + mt * 16 + gq + 8 * h;
-        if (m >= g.M) continue;
-#pragma unroll
-        for (int nt = 0; nt < 8; ++nt) {
-          const int n = n0 + wn * 64 + nt * 8 + t4 * 2;
-          if (n >= g.N) continue;
-          char2 q;
-          float y = __fadd_rn(__fmul_rn(__int2float_rn(acc[mt][nt][2 * h]),
-                                        __fmul_rn(__ldg(g.wsc + n), g.asc_in)), __ldg(g.bias + n));
-          q.x = requant(fmaxf(y, 0.f), g.inv_out);
-          y = __fadd_rn(__fmul_rn(__int2float_rn(acc[mt][nt][2 * h + 1]),
-                                  __fmul_rn(__ldg(g.wsc + n + 1), g.asc_in)), __ldg(g.bias + n + 1));
-          q.y = requant(fmaxf(y, 0.f), g.inv_out);
-          *reinterpret_cast<char2*>(g.out + static_cast<long long>(m) * g.N + n) = q;
-        }
+        const int r = wg * 64 + wi * 16 + gq + 8 * h;
+        char2 q;
+        q.x = requant(fmaxf(__fadd_rn(__fmul_rn(__int2float_rn(acc[4 * j + 2 * h]), s0), b0),
+                            0.f), g.inv_out);
+        q.y = requant(fmaxf(__fadd_rn(__fmul_rn(__int2float_rn(acc[4 * j + 2 * h + 1]), s1),
+                                      b1), 0.f), g.inv_out);
+        *reinterpret_cast<char2*>(cs + r * C_STRIDE + c) = q;
       }
+    }
+    __syncthreads();
+    for (int i = tid; i < BM * (BN / 16); i += THREADS) {
+      const int r = i / (BN / 16), c16 = (i % (BN / 16)) * 16;
+      const int m = m0 + r;
+      if (m < g.M)
+        *reinterpret_cast<int4*>(g.out + static_cast<long long>(m) * g.N + n0 + c16) =
+            *reinterpret_cast<const int4*>(cs + r * C_STRIDE + c16);
+    }
     return;
   }
 
   // deconv epilogue: requantize at asc5, then the class conv of each row's
-  // ROI class over this block's 256 columns, reduced in a fixed order
+  // ROI class over this block's 256 columns, reduced in a fixed order: each
+  // thread over its columns in ascending order, then across the four
+  // threads of the row (xor 1, then xor 2)
   const float a5 = bf16r(g.asc_out);
-  float part[2][2];
-  const __nv_bfloat16* wcol[2][2];
 #pragma unroll
-  for (int mt = 0; mt < 2; ++mt)
+  for (int h = 0; h < 2; ++h) {
+    const int r = wg * 64 + wi * 16 + gq + 8 * h;
+    const int m = m0 + r;
+    const __nv_bfloat16* wcol = g.wout + __ldg(g.classes + (m < g.M ? m / PP : 0));
+    float part = 0.f;
 #pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int m = m0 + wm * 32 + mt * 16 + gq + 8 * h;
-      wcol[mt][h] = g.wout + __ldg(g.classes + (m < g.M ? m / PP : 0));
-      part[mt][h] = 0.f;
-    }
+    for (int j = 0; j < 32; ++j)
 #pragma unroll
-  for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-    for (int nt = 0; nt < 8; ++nt)
-#pragma unroll
-      for (int v = 0; v < 4; ++v) {
-        const int h = v >> 1;
-        const int c = wn * 64 + nt * 8 + t4 * 2 + (v & 1);
+      for (int e = 0; e < 2; ++e) {
+        const int c = 8 * j + t4 * 2 + e;
         const int n = n0 + c;
-        const float y = __fadd_rn(__fmul_rn(__int2float_rn(acc[mt][nt][v]),
+        const float y = __fadd_rn(__fmul_rn(__int2float_rn(acc[4 * j + 2 * h + e]),
                                             __fmul_rn(__ldg(g.wsc + n), g.asc_in)),
                                   __ldg(g.bias + n));
         const float q = static_cast<float>(requant(fmaxf(y, 0.f), g.inv_out));
         const float yb = bf16r(__fmul_rn(q, a5));
-        part[mt][h] = __fadd_rn(part[mt][h],
-                                __fmul_rn(yb, __bfloat162float(wcol[mt][h][c * g.nc])));
+        part = __fadd_rn(part, __fmul_rn(yb, __bfloat162float(wcol[c * g.nc])));
       }
-#pragma unroll
-  for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      float p = part[mt][h];
-      p = __fadd_rn(p, __shfl_xor_sync(0xffffffffu, p, 1));
-      p = __fadd_rn(p, __shfl_xor_sync(0xffffffffu, p, 2));
-      if (t4 == 0) red[wn * BM + wm * 32 + mt * 16 + gq + 8 * h] = p;
-    }
-  __syncthreads();
-  if (tid < BM) {
-    const int m = m0 + tid;
-    if (m < g.M) {
+    part = __fadd_rn(part, __shfl_xor_sync(0xffffffffu, part, 1));
+    part = __fadd_rn(part, __shfl_xor_sync(0xffffffffu, part, 2));
+    if (t4 == 0 && m < g.M) {
       const int roi = m / PP, pix = m % PP;
       const int py = pix / g.P, px = pix % g.P;
-      float logit = 0.f;
-#pragma unroll
-      for (int w = 0; w < WN; ++w) logit = __fadd_rn(logit, red[w * BM + tid]);
-      logit = __fadd_rn(logit, __ldg(g.bias_out + __ldg(g.classes + roi)));
+      const float logit = __fadd_rn(part, __ldg(g.bias_out + __ldg(g.classes + roi)));
       const float prob = bf16r(1.f / (1.f + expf(-logit)));
       const int di = blockIdx.y >> 1, dj = blockIdx.y & 1;
       const int side = 2 * g.P;
@@ -354,6 +449,13 @@ extern "C" int fused_mask_branch(const void* fmap, const void* boxes, const void
   const float* wscf = static_cast<const float*>(wsc);
   const float* biasf = static_cast<const float*>(bias);
 
+  cudaError_t attr = cudaFuncSetAttribute(gemm_kernel<3, false>,
+                                          cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
+  if (attr == cudaSuccess)
+    attr = cudaFuncSetAttribute(gemm_kernel<1, true>,
+                                cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
+  if (attr != cudaSuccess) return static_cast<int>(attr);
+
   {
     dim3 block(Cf / 8 < 32 ? Cf / 8 : 32, 8);
     crop_quant_kernel<<<B * K * P, block, 0, s>>>(
@@ -366,6 +468,7 @@ extern "C" int fused_mask_branch(const void* fmap, const void* boxes, const void
   const void* wts[4] = {w1, w2, w3, w4};
   const int8_t* src = static_cast<const int8_t*>(x0);
   int8_t* bufs[2] = {static_cast<int8_t*>(xa), static_cast<int8_t*>(xb)};
+  const unsigned mblocks = static_cast<unsigned>((M + BM - 1) / BM);
   for (int l = 0; l < 4; ++l) {
     GemmArgs g = {};
     g.a = src;
@@ -379,8 +482,7 @@ extern "C" int fused_mask_branch(const void* fmap, const void* boxes, const void
     g.asc_in = asc[l];
     g.inv_out = 1.0f / asc[l + 1];
     g.out = bufs[l % 2];
-    const dim3 grid((M + 127) / 128, co / 128);
-    gemm_kernel<3, 4, 2, false><<<grid, THREADS, 0, s>>>(g);
+    gemm_kernel<3, false><<<dim3(mblocks, co / BN), THREADS, SMEM_BYTES, s>>>(g);
     const int err = static_cast<int>(cudaGetLastError());
     if (err) return err;
     src = bufs[l % 2];
@@ -403,7 +505,6 @@ extern "C" int fused_mask_branch(const void* fmap, const void* boxes, const void
   g.bias_out = biasf + 5 * ld;
   g.nc = nc;
   g.masks = static_cast<float*>(masks);
-  const dim3 grid((M + 63) / 64, 4);
-  gemm_kernel<1, 2, 4, true><<<grid, THREADS, 0, s>>>(g);
+  gemm_kernel<1, true><<<dim3(mblocks, 4), THREADS, SMEM_BYTES, s>>>(g);
   return static_cast<int>(cudaGetLastError());
 }

@@ -46,7 +46,7 @@ BF16_TRAINING = ("bf16 training is not ported yet: a bfloat16 network holds roun
 
 class MaskYOLO:
     def __init__(self, mode, config, model_dir=None, yolo_pretrain_dir=None,
-                 yolo_trainable=True, seed: int = 0, device="cpu"):
+                 yolo_trainable=True, seed: int = 0, device="cuda"):
         if mode not in ("training", "inference", "yolo"):
             raise ValueError(f"mode must be 'training', 'inference' or 'yolo', got {mode!r}")
         if mode != "inference" and config.COMPUTE_DTYPE != "float32":

@@ -24,12 +24,12 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _lock = threading.Lock()
 
 
-def build(name: str) -> Path:
-    """Compile csrc/<name>.cu unless its library is already built. nvcc's
+def build(name: str, csrc: Path = CSRC) -> Path:
+    """Compile <csrc>/<name>.cu unless its library is already built. nvcc's
     output (ptxas register and spill counts) goes to <library>.log."""
     from torch.utils.cpp_extension import CUDA_HOME
 
-    src = CSRC / f"{name}.cu"
+    src = Path(csrc) / f"{name}.cu"
     digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()
     lib = BUILD_DIR / f"lib{name}-{digest[:16]}.so"
     if lib.exists():
@@ -42,7 +42,7 @@ def build(name: str) -> Path:
                            "-o", str(tmp), str(src)], capture_output=True, text=True)
     lib.with_suffix(".log").write_text(proc.stdout + proc.stderr)
     if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed on csrc/{name}.cu:\n{proc.stdout}{proc.stderr}")
+        raise RuntimeError(f"nvcc failed on {src}:\n{proc.stdout}{proc.stderr}")
     os.replace(tmp, lib)
     return lib
 

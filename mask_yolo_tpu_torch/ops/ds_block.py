@@ -35,7 +35,8 @@ from .int8 import int_mm, inv_scale, quantize
 def pack_ds_pair(dw_layer, pw_layer, s_in: float):
     """quant.Layer pair → the kernel's operands (numpy):
     kdw [9, C] int8 taps in (di, dj) order, dwsb [2, C] f32 =
-    (dw.w_scale · s_in, dw.bias), wpw [C, O] int8, pwsb [2, O] f32 =
+    (dw.w_scale · s_in, dw.bias), wpw [O, C] int8 (K-contiguous: the
+    transpose of the JAX package's [C, O]), pwsb [2, O] f32 =
     (pw.w_scale · pw.a_scale, pw.bias). s_in: the int8 input's scale."""
     assert dw_layer.kind == "dw" and dw_layer.strides == (1, 1)
     assert dw_layer.quantize and dw_layer.w_q is not None
@@ -45,7 +46,7 @@ def pack_ds_pair(dw_layer, pw_layer, s_in: float):
     kdw = np.ascontiguousarray(np.asarray(dw_layer.w_q).reshape(9, c))
     dwsb = np.stack([np.asarray(dw_layer.w_scale, np.float32) * np.float32(s_in),
                      np.asarray(dw_layer.bias, np.float32)])
-    wpw = np.ascontiguousarray(np.asarray(pw_layer.w_q).reshape(c, -1))
+    wpw = np.ascontiguousarray(np.asarray(pw_layer.w_q).reshape(c, -1).T)
     pwsb = np.stack([np.asarray(pw_layer.w_scale, np.float32) * np.float32(pw_layer.a_scale),
                      np.asarray(pw_layer.bias, np.float32)])
     return kdw, dwsb, wpw, pwsb
@@ -62,7 +63,7 @@ def fused_ds_block_reference(x_q, kdw, dwsb, wpw, pwsb, a_pw: float, s_out: floa
         acc = acc + xp[:, di:di + h, dj:dj + w] * taps[t]
     y = torch.clamp(acc.float() * dwsb[0] + dwsb[1], 0.0, 6.0)
     q = quantize(y, a_pw)
-    acc2 = int_mm(q.reshape(-1, c), wpw).reshape(b, h, w, -1)
+    acc2 = int_mm(q.reshape(-1, c), wpw.t()).reshape(b, h, w, -1)
     y2 = torch.clamp(acc2.float() * pwsb[0] + pwsb[1], 0.0, 6.0)
     return quantize(y2, s_out) if s_out else y2
 
@@ -86,14 +87,16 @@ def fused_ds_block(x_q, kdw, dwsb, wpw, pwsb, a_pw: float, s_out: float = 0.0):
     if x_q.dim() != 4 or x_q.dtype != torch.int8:
         raise TypeError(f"x_q must be int8 [B, H, W, C], got {x_q.dtype} {tuple(x_q.shape)}")
     b, h, w, c = x_q.shape
-    o = wpw.shape[-1] if wpw.dim() == 2 else -1
+    o = wpw.shape[0] if wpw.dim() == 2 else -1
     expect = {"kdw": (kdw, (9, c), torch.int8), "dwsb": (dwsb, (2, c), torch.float32),
-              "wpw": (wpw, (c, o), torch.int8), "pwsb": (pwsb, (2, o), torch.float32)}
+              "wpw": (wpw, (o, c), torch.int8), "pwsb": (pwsb, (2, o), torch.float32)}
     for name, (t, shape, dtype) in expect.items():
         if tuple(t.shape) != shape or t.dtype != dtype:
             raise ValueError(f"{name}: expected {dtype} {shape}, got {t.dtype} {tuple(t.shape)}")
         if t.device != x_q.device:
             raise ValueError(f"{name} on {t.device} but x_q on {x_q.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous (the packed layout)")
     if not a_pw > 0.0 or s_out < 0.0:
         raise ValueError(f"need a_pw > 0 and s_out >= 0, got {a_pw}, {s_out}")
     if x_q.device.type == "cpu":
@@ -102,8 +105,8 @@ def fused_ds_block(x_q, kdw, dwsb, wpw, pwsb, a_pw: float, s_out: float = 0.0):
         raise ValueError(f"fused_ds_block runs on cpu or cuda tensors, got {x_q.device}")
     if c % 32 or o % 16:
         raise ValueError(f"the kernel needs C % 32 == 0 and O % 16 == 0, got C={c}, O={o}")
-    if not all(t.is_contiguous() for t in (x_q, kdw, dwsb, wpw, pwsb)):
-        raise ValueError("fused_ds_block needs contiguous operands")
+    if not x_q.is_contiguous():
+        raise ValueError("fused_ds_block needs a contiguous x_q")
     out = torch.empty((b, h, w, o), dtype=torch.int8 if s_out else torch.float32,
                       device=x_q.device)
     if out.numel() == 0:

@@ -18,6 +18,10 @@ TPU kernel's body (`_mask_kernel`) step by step:
   6. each ROI's class, per (di, dj) block; stored as bf16, returned as f32
      after depth-to-space → [B, K, 2P, 2P].
 
+The weights arrive packed for the kernel (`pack_mask_weights`: K-contiguous,
+128-byte-swizzled rows); the plain version reads the same packed dict and
+unpacks it (`unpack_mask_weights`) on every call.
+
 `fused_mask_branch.launches` counts kernel calls (one per call; CPU calls
 do not count).
 """
@@ -36,15 +40,48 @@ from .roi_align import crop_and_resize
 
 _LAYER_NAMES = ["mask_conv1", "mask_conv2", "mask_conv3", "mask_conv4", "mask_deconv",
                 "mask_out"]
+SWIZZLE_BYTES = 128   # the kernel's k-step and the swizzle's period
+
+
+def _swizzle_index(n: int, kp: int):
+    """[n, kp/16] chunk positions: chunk j of row r of a 128-byte block sits
+    at chunk j ^ (r % 8) of that block (an involution, so the same index
+    packs and unpacks)."""
+    j = np.arange(kp // 16)
+    return (j // 8) * 8 + ((j % 8)[None, :] ^ (np.arange(n) % 8)[:, None])
+
+
+def swizzle_nk(w_kn):
+    """int8 [K, N] (rows in the plain version's im2col order) → the kernel's
+    [N, Kp]: K-contiguous rows zero-padded to a multiple of 128 bytes, each
+    128-byte block's 16-byte chunks in the swizzled order."""
+    k, n = w_kn.shape
+    kp = -(-k // SWIZZLE_BYTES) * SWIZZLE_BYTES
+    rows = np.zeros((n, kp), np.int8)
+    rows[:, :k] = np.asarray(w_kn, np.int8).T
+    chunks = rows.reshape(n, kp // 16, 16)
+    out = np.empty_like(chunks)
+    np.put_along_axis(out, _swizzle_index(n, kp)[..., None], chunks, axis=1)
+    return out.reshape(n, kp)
+
+
+def unswizzle_nk(w_nk, k: int):
+    """swizzle_nk's inverse on a tensor: [N, Kp] → [K, N] (a transposed view)."""
+    n, kp = w_nk.shape
+    idx = torch.as_tensor(_swizzle_index(n, kp), device=w_nk.device)
+    chunks = torch.gather(w_nk.reshape(n, kp // 16, 16), 1, idx[..., None].expand(-1, -1, 16))
+    return chunks.reshape(n, kp)[:, :k].t()
 
 
 def pack_mask_weights(graph, num_classes: int):
     """The quant graph's mask layers as the kernel's operands (numpy):
-    w1..w4 [9·Cin, co] int8 with rows in (di, dj, ci) order, wd [co, 4·co]
-    int8, wo [4·co, 4·nc] f32 holding bf16 values (block-diagonal), wsc
-    [5, 4·co] and bias [6, 4·co] f32 (zero-padded rows), asc [6] f32
-    activation scales. The deconv's orientation is the graph's
-    (quant._mask_layers)."""
+    w1..w4 int8 [co, 9·Cin → 128] and wd int8 [4·co, co → 128], swizzled
+    K-contiguous rows (swizzle_nk of the im2col matrices [9·Cin, co] with
+    rows in (di, dj, ci) order and of the deconv's [co, 4·co]), wo [4·co,
+    4·nc] f32 holding bf16 values (block-diagonal), wsc [5, 4·co] and bias
+    [6, 4·co] f32 (zero-padded rows), asc [6] f32 activation scales. The
+    deconv's orientation is the graph's (quant._mask_layers).
+    unpack_mask_weights gives back the JAX package's operands."""
     layers = graph["mask"]
     assert [l.name for l in layers] == _LAYER_NAMES
     convs, deconv, out = layers[:4], layers[4], layers[5]
@@ -69,9 +106,19 @@ def pack_mask_weights(graph, num_classes: int):
     bias[4] = deconv.bias
     bias[5, :4 * num_classes] = out.bias
     asc = np.asarray([l.a_scale for l in convs] + [deconv.a_scale, out.a_scale], np.float32)
-    return {"w1": ws[0].astype(np.int8), "w2": ws[1].astype(np.int8),
-            "w3": ws[2].astype(np.int8), "w4": ws[3].astype(np.int8),
-            "wd": wd.astype(np.int8), "wo": wo, "wsc": wsc, "bias": bias, "asc": asc}
+    return {"w1": swizzle_nk(ws[0]), "w2": swizzle_nk(ws[1]), "w3": swizzle_nk(ws[2]),
+            "w4": swizzle_nk(ws[3]), "wd": swizzle_nk(wd), "wo": wo, "wsc": wsc,
+            "bias": bias, "asc": asc}
+
+
+def unpack_mask_weights(weights, cf: int):
+    """The plain version's operands from the packed ones (tensors): w1
+    [9·cf, co], w2..w4 [9·co, co], wd [co, 4·co] int8 (transposed views)."""
+    co = weights["w1"].shape[0]
+    out = {name: unswizzle_nk(weights[name], 9 * co) for name in ("w2", "w3", "w4")}
+    out["w1"] = unswizzle_nk(weights["w1"], 9 * cf)
+    out["wd"] = unswizzle_nk(weights["wd"], co)
+    return out
 
 
 def weights_to(weights, device):
@@ -98,14 +145,15 @@ def fused_mask_branch_reference(fmap, boxes, classes, weights, pool: int, num_cl
     b, k = boxes.shape[:2]
     asc = [float(s) for s in np.asarray(weights["asc"], np.float32)]
     wsc, bias = weights["wsc"], weights["bias"]
-    co = weights["w1"].shape[-1]
+    co = weights["w1"].shape[0]
+    plain = unpack_mask_weights(weights, fmap.shape[-1])
     crops = crop_and_resize(fmap.to(torch.bfloat16), boxes.float(), (pool, pool)).float()
     x_q = quantize(crops.reshape(b * k * pool * pool, -1), asc[0])
     for li, name in enumerate(("w1", "w2", "w3", "w4")):
-        acc = _conv3x3_rois(x_q, weights[name], pool)
+        acc = _conv3x3_rois(x_q, plain[name], pool)
         y = torch.relu(acc.float() * (wsc[li, :co] * asc[li]) + bias[li, :co])
         x_q = quantize(y, asc[li + 1])
-    acc = int_mm(x_q, weights["wd"])
+    acc = int_mm(x_q, plain["wd"])
     y = torch.relu(acc.float() * (wsc[4] * asc[4]) + bias[4])
     y_q = quantize(y, asc[5])
     yb = y_q.to(torch.bfloat16) * torch.tensor(asc[5], dtype=torch.bfloat16)
@@ -144,17 +192,29 @@ def fused_mask_branch(fmap, boxes, classes, weights, pool: int = 14, num_classes
                         f"{classes.dtype}")
     if not (fmap.device == boxes.device == classes.device == weights["w1"].device):
         raise ValueError("fmap, boxes, classes and weights must share a device")
-    co = weights["w1"].shape[-1]
-    if weights["w1"].shape[0] != 9 * fmap.shape[-1] or weights["wo"].shape != (4 * co, 4 * num_classes):
-        raise ValueError("weights do not match the fmap's channels or num_classes")
+    co, cf = weights["w1"].shape[0], fmap.shape[-1]
+    rows = lambda k: -(-k // SWIZZLE_BYTES) * SWIZZLE_BYTES   # noqa: E731
+    expect = {"w1": ((co, rows(9 * cf)), torch.int8), "w2": ((co, rows(9 * co)), torch.int8),
+              "w3": ((co, rows(9 * co)), torch.int8), "w4": ((co, rows(9 * co)), torch.int8),
+              "wd": ((4 * co, rows(co)), torch.int8),
+              "wo": ((4 * co, 4 * num_classes), torch.bfloat16),
+              "wsc": ((5, 4 * co), torch.float32), "bias": ((6, 4 * co), torch.float32)}
+    for name, (shape, dtype) in expect.items():
+        t = weights[name]
+        if tuple(t.shape) != shape or t.dtype != dtype or t.device != fmap.device:
+            raise ValueError(f"weights[{name!r}]: expected packed {dtype} {shape} on "
+                             f"{fmap.device} for Cf={cf}, num_classes={num_classes}; got "
+                             f"{t.dtype} {tuple(t.shape)} on {t.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"weights[{name!r}] must be contiguous (the packed layout)")
     if fmap.device.type == "cpu":
         return fused_mask_branch_reference(fmap, boxes, classes, weights, pool, num_classes)
     if fmap.device.type != "cuda":
         raise ValueError(f"fused_mask_branch runs on cpu or cuda tensors, got {fmap.device}")
     b, h, w, cf = fmap.shape
     k = boxes.shape[1]
-    if cf % 32 or co != 256:
-        raise ValueError(f"the kernel needs Cf % 32 == 0 and co == 256, got {cf}, {co}")
+    if cf % 128 or co != 256:
+        raise ValueError(f"the kernel needs Cf % 128 == 0 and co == 256, got {cf}, {co}")
     out = torch.empty((b, k, 2 * pool, 2 * pool), dtype=torch.float32, device=fmap.device)
     if out.numel() == 0:
         return out
@@ -168,12 +228,10 @@ def fused_mask_branch(fmap, boxes, classes, weights, pool: int = 14, num_classes
     xb = torch.empty((m, co), dtype=torch.int8, device=fmap.device)
     ptrs = [fmap, boxes, classes, weights["w1"], weights["w2"], weights["w3"], weights["w4"],
             weights["wd"], wout, weights["wsc"], weights["bias"], x0, xa, xb, out]
-    if not all(t.is_contiguous() for t in ptrs):
-        raise ValueError("fused_mask_branch needs contiguous weights")
     with torch.cuda.device(fmap.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = _kernel()(*[t.data_ptr() for t in ptrs], b, h, w, cf, k, pool, co, num_classes,
-                       weights["wsc"].shape[1], *[float(s) for s in weights["asc"]], stream)
+                       4 * co, *[float(s) for s in weights["asc"]], stream)
     if rc != 0:
         raise RuntimeError(f"fused_mask_branch kernel launch failed with CUDA error {rc}")
     fused_mask_branch.launches += 1

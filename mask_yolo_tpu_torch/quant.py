@@ -480,9 +480,13 @@ class QuantizedDetector:
         self._mask_weights = {}   # device → K3's packed weights
 
     @classmethod
-    def from_variables(cls, variables, config, calib_images, device="cpu"):
+    def from_variables(cls, variables, config, calib_images, device="cuda"):
         """variables: a flax-layout f32 tree; calib_images: [N, H, W, 3]
-        float in [0, 1] (numpy or tensor), calibrated on `device`."""
+        float in [0, 1] (numpy or tensor), calibrated on `device` (the card
+        unless the caller asks for the CPU)."""
+        device = torch.device(device)
+        if device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError("device='cuda' requested but no CUDA device is available")
         if bool(getattr(config, "QUANT_BIAS_CORRECT", False)):
             raise NotImplementedError("QUANT_BIAS_CORRECT " + _NOT_PORTED.format(10))
         graph = build_layer_graph(variables, config)

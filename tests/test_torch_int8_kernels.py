@@ -46,14 +46,17 @@ def test_ds_block_plain_matches_jax(rng, s_out, shape):
     chained = np.asarray(jquant.run_layer_int8(pw, x1, s1,
                                                out_scale=s_out if s_out else None)[0])
     packed = pallas_ds.pack_ds_pair(dw, pw, dw.a_scale)
-    for mine, theirs in zip(ds_block.pack_ds_pair(dw, pw, dw.a_scale), packed):
-        np.testing.assert_array_equal(mine, np.asarray(theirs))
+    mine = ds_block.pack_ds_pair(dw, pw, dw.a_scale)
+    for name, ours, theirs in zip(("kdw", "dwsb", "wpw", "pwsb"), mine, packed):
+        # the port packs wpw K-contiguous, [O, C]: the transpose of JAX's [C, O]
+        want = np.asarray(theirs).T if name == "wpw" else np.asarray(theirs)
+        np.testing.assert_array_equal(ours, want, err_msg=name)
     pallas = np.asarray(pallas_ds.fused_ds_block(
         *map(jnp.asarray, (x_q, *packed)), a_pw=float(pw.a_scale), s_out=float(s_out),
         interpret=True))
 
     launches = ds_block.fused_ds_block.launches
-    got = ds_block.fused_ds_block(*map(torch.tensor, (x_q, *packed)), a_pw=pw.a_scale,
+    got = ds_block.fused_ds_block(*map(torch.tensor, (x_q, *mine)), a_pw=pw.a_scale,
                                   s_out=s_out).numpy()
     assert ds_block.fused_ds_block.launches == launches   # CPU runs the plain version
     assert got.dtype == (np.int8 if s_out else np.float32)
@@ -67,13 +70,38 @@ def test_ds_block_plain_matches_jax(rng, s_out, shape):
 def test_ds_block_checks_inputs(rng):
     dw, pw = _make_pair(rng, 8, 16)
     args = list(map(torch.tensor, (rng.randint(-5, 5, (1, 4, 4, 8)).astype(np.int8),
-                                   *pallas_ds.pack_ds_pair(dw, pw, dw.a_scale))))
+                                   *ds_block.pack_ds_pair(dw, pw, dw.a_scale))))
     with pytest.raises(TypeError):
         ds_block.fused_ds_block(args[0].float(), *args[1:], a_pw=0.1)
     with pytest.raises(ValueError, match="wpw"):
-        ds_block.fused_ds_block(*args[:3], args[3][:4], args[4], a_pw=0.1)
+        ds_block.fused_ds_block(*args[:3], args[3][:, :4], args[4], a_pw=0.1)
     with pytest.raises(ValueError, match="a_pw"):
         ds_block.fused_ds_block(*args, a_pw=0.0)
+
+
+@pytest.mark.parametrize("bad", ["jax_layout", "dtype", "non_contiguous"])
+def test_ds_block_refuses_a_bad_packed_wpw(rng, bad):
+    """wpw must be the packed [O, C] int8 array: the JAX package's [C, O],
+    another dtype or a strided view of the right shape raise."""
+    dw, pw = _make_pair(rng, 8, 16)
+    x_q, kdw, dwsb, wpw, pwsb = map(torch.tensor, (
+        rng.randint(-5, 5, (1, 4, 4, 8)).astype(np.int8), *ds_block.pack_ds_pair(dw, pw, 0.01)))
+    wpw = {"jax_layout": wpw.t().contiguous(), "dtype": wpw.int(),
+           "non_contiguous": torch.zeros((8, 16), dtype=torch.int8).t()}[bad]
+    with pytest.raises(ValueError, match="wpw"):
+        ds_block.fused_ds_block(x_q, kdw, dwsb, wpw, pwsb, a_pw=0.1)
+
+
+@pytest.mark.parametrize("c, o", [(8, 16), (32, 64), (1024, 1024)],
+                         ids=["tiny", "shapes_first", "shapes_last"])
+def test_ds_pack_unpacks_to_the_plain_operands(rng, c, o):
+    """pack_ds_pair's wpw is K-contiguous [O, C]; its transpose is exactly
+    the pointwise layer's int8 kernel as the JAX package packs it."""
+    dw, pw = _make_pair(rng, c, o)
+    kdw, dwsb, wpw, pwsb = ds_block.pack_ds_pair(dw, pw, dw.a_scale)
+    assert wpw.shape == (o, c) and wpw.dtype == np.int8 and wpw.flags.c_contiguous
+    np.testing.assert_array_equal(wpw.T, np.asarray(pw.w_q).reshape(c, o))
+    np.testing.assert_array_equal(wpw.T, np.asarray(pallas_ds.pack_ds_pair(dw, pw, dw.a_scale)[2]))
 
 
 @pytest.fixture(scope="module")
@@ -110,14 +138,79 @@ def _close(got, ref):
 
 
 def test_mask_weights_pack_like_jax(mask_setup):
-    """The same operands as the JAX package packs (wo as bf16 values; the
-    port keeps the six activation scales without the TPU's padding)."""
-    _, _, _, jw, pw = mask_setup
+    """The same operands as the JAX package packs, once the swizzled
+    K-contiguous GEMM weights are unpacked (wo as bf16 values; the port
+    keeps the six activation scales without the TPU's padding)."""
+    _, _, fmap, jw, pw = mask_setup
     assert jw.keys() == pw.keys()
+    plain = mask_fused.unpack_mask_weights(mask_fused.weights_to(pw, "cpu"), fmap.shape[-1])
     for key in jw:
         want = np.asarray(jnp.asarray(jw[key], jnp.float32)).reshape(-1)
-        np.testing.assert_array_equal(np.asarray(pw[key], np.float32).reshape(-1),
+        got = plain[key].numpy() if key in plain else pw[key]
+        np.testing.assert_array_equal(np.asarray(got, np.float32).reshape(-1),
                                       want[:6] if key == "asc" else want, err_msg=key)
+
+
+def _mask_graph(rng, cf, co, nc):
+    """Six random quantized mask layers of the given widths."""
+    def layer(name, shape):
+        return quant.Layer(name, "conv", rng.standard_normal(shape).astype(np.float32),
+                           rng.standard_normal(shape[-1]).astype(np.float32),
+                           w_q=rng.integers(-127, 128, shape, dtype=np.int8),
+                           w_scale=rng.uniform(0.01, 0.02, shape[-1]).astype(np.float32),
+                           a_scale=0.05)
+    return {"mask": [layer("mask_conv1", (3, 3, cf, co))]
+            + [layer(f"mask_conv{i}", (3, 3, co, co)) for i in (2, 3, 4)]
+            + [layer("mask_deconv", (1, 1, co, 4 * co)), layer("mask_out", (1, 1, 4 * co, 4 * nc))]}
+
+
+@pytest.mark.parametrize("cf, co, nc", [(16, 256, 4), (256, 256, 4), (256, 256, 81)],
+                         ids=["tiny", "shapes", "coco"])
+def test_mask_pack_unpacks_to_the_plain_operands(cf, co, nc):
+    """K3's packed GEMM weights are [N, K rounded up to 128] int8, chunk c
+    of a row's 128-byte block at chunk c ^ (n % 8), zero past K; they unpack
+    to exactly the im2col matrices the plain version multiplies by."""
+    rng = np.random.default_rng(cf + nc)
+    graph = _mask_graph(rng, cf, co, nc)
+    packed = mask_fused.pack_mask_weights(graph, nc)
+    layers = graph["mask"]
+    want = {"w1": layers[0].w_q.reshape(9 * cf, co), "wd": layers[4].w_q.reshape(co, 4 * co)}
+    want.update({f"w{i}": layers[i - 1].w_q.reshape(9 * co, co) for i in (2, 3, 4)})
+    kp1 = -(-9 * cf // 128) * 128
+    assert packed["w1"].shape == (co, kp1) and packed["wd"].shape == (4 * co, co)
+    plain = mask_fused.unpack_mask_weights(mask_fused.weights_to(packed, "cpu"), cf)
+    for key, w in want.items():
+        assert packed[key].dtype == np.int8 and packed[key].flags.c_contiguous
+        np.testing.assert_array_equal(plain[key].numpy(), w, err_msg=key)
+    rows = want["w2"].T                       # [N, K], the unswizzled order
+    for n in (0, 5, 13, 255):
+        for c in range(16):
+            block, chunk = divmod(c, 8)
+            at = 128 * block + 16 * (chunk ^ (n % 8))
+            np.testing.assert_array_equal(packed["w2"][n, at:at + 16], rows[n, 16 * c:16 * c + 16])
+    unswizzled = mask_fused.unswizzle_nk(torch.tensor(packed["w1"]), kp1).t().numpy()
+    assert not unswizzled[:, 9 * cf:].any()
+
+
+@pytest.mark.parametrize("bad", ["unpacked_layout", "dtype", "non_contiguous", "wd_shape"])
+def test_mask_wrapper_refuses_a_bad_packed_operand(mask_setup, bad):
+    """The wrapper holds each packed operand to its dtype, shape and
+    contiguity before anything runs."""
+    _, _, fmap, _, pw = mask_setup
+    w = dict(mask_fused.weights_to(pw, "cpu"))
+    if bad == "unpacked_layout":
+        w["w2"] = mask_fused.unpack_mask_weights(w, fmap.shape[-1])["w2"].contiguous()
+    elif bad == "dtype":
+        w["w3"] = w["w3"].to(torch.int16)
+    elif bad == "non_contiguous":
+        w["w4"] = torch.zeros(tuple(w["w4"].shape)[::-1], dtype=torch.int8).t()
+    else:
+        w["wd"] = w["wd"][:, :128].contiguous()
+    b = fmap.shape[0]
+    with pytest.raises(ValueError, match="w2|w3|w4|wd"):
+        mask_fused.fused_mask_branch(torch.tensor(fmap), torch.zeros((b, 2, 4)),
+                                     torch.zeros((b, 2), dtype=torch.int32), w,
+                                     JaxQ.MASK_POOL_SIZE, JaxQ.NUM_CLASSES)
 
 
 def test_mask_plain_matches_pallas_and_chained(mask_setup, rng):

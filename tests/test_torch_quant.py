@@ -95,7 +95,7 @@ def test_graph_equals_jax_and_bridge_inverts(qsetup):
         np.testing.assert_array_equal(g.bias, np.asarray(w.bias), err_msg=g.name)
     assert all(l.quantize for l in got["trunk"] if l.kind == "dw")   # QUANT_DW_INT8
 
-    keys = MaskYOLO("inference", PortQ()).net.state_dict().keys()
+    keys = MaskYOLO("inference", PortQ(), device="cpu").net.state_dict().keys()
     _same_tree(weights.to_jax_variables(weights.from_jax_variables(v, keys)),
                jax.tree_util.tree_map(np.asarray, v))
 
@@ -222,12 +222,13 @@ def test_model_quantize_and_serve(qsetup):
     float images), detect and detect_batch on the int8 path, a CPU
     BatchingExecutor answering 3 requests; load_jax_variables drops it."""
     v, *_ = qsetup
-    model = MaskYOLO("inference", PortQ())
+    model = MaskYOLO("inference", PortQ(), device="cpu")
     model.load_jax_variables(v)
     rng = np.random.RandomState(8)
     calib = (rng.rand(4, *JaxQ.IMAGE_SHAPE) * 255).astype(np.uint8)
     qdet = model.quantize(calib)
-    ref = quant.QuantizedDetector.from_variables(v, PortQ(), calib.astype(np.float32) / 255.0)
+    ref = quant.QuantizedDetector.from_variables(v, PortQ(), calib.astype(np.float32) / 255.0,
+                                               device="cpu")
     assert [l.a_scale for l in _layers(qdet.graph)] == [l.a_scale for l in _layers(ref.graph)]
 
     images = (rng.rand(3, *JaxQ.IMAGE_SHAPE) * 255).astype(np.uint8)
@@ -254,7 +255,8 @@ def test_model_quantize_and_serve(qsetup):
 def test_seeded_model_quantizes_its_f32_draws():
     """A bf16 model folds the f32 seeded draws, not its rounded parameters."""
     cfg = type("B", (PortQ,), {"COMPUTE_DTYPE": "bfloat16"})()
-    bf16, f32 = MaskYOLO("inference", cfg, seed=3), MaskYOLO("inference", PortQ(), seed=3)
+    bf16 = MaskYOLO("inference", cfg, seed=3, device="cpu")
+    f32 = MaskYOLO("inference", PortQ(), seed=3, device="cpu")
     for key, val in f32.net.state_dict().items():
         np.testing.assert_array_equal(bf16._host_state[key], val.numpy())
     w = bf16.net.state_dict()["mask.mask_conv1.weight"]
@@ -273,7 +275,7 @@ def test_unported_options_raise(qsetup, knob, value, item):
     v, _, _, calib, _ = qsetup
     cfg = type("X", (PortQ,), {knob: value})()
     with pytest.raises(NotImplementedError, match=item):
-        quant.QuantizedDetector.from_variables(v, cfg, calib[:1])
+        quant.QuantizedDetector.from_variables(v, cfg, calib[:1], device="cpu")
 
 
 def test_unported_entry_points_raise(qsetup):
@@ -286,7 +288,7 @@ def test_unported_entry_points_raise(qsetup):
     with pytest.raises(NotImplementedError, match="item 11"):
         det.detect_outputs(torch.zeros((1, *JaxQ.IMAGE_SHAPE)), mesh=object())
     with pytest.raises(NotImplementedError, match="item 10"):
-        MaskYOLO("inference", PortQ()).quantize(np.zeros((1, 64, 64, 3), np.uint8),
+        MaskYOLO("inference", PortQ(), device="cpu").quantize(np.zeros((1, 64, 64, 3), np.uint8),
                                                 finetune_steps=5)
 
 

@@ -16,7 +16,7 @@ import torch
 from conftest import TinyConfig
 from mask_yolo_tpu import pipelines as jpipelines
 from mask_yolo_tpu.models.network import MaskYoloNet as JaxNet
-from mask_yolo_tpu_torch import MaskYOLO, pipelines
+from mask_yolo_tpu_torch import MaskYOLO, pipelines, quant
 from mask_yolo_tpu_torch.config import Config
 from mask_yolo_tpu_torch.models import network as torch_network
 from mask_yolo_tpu_torch.serve import BatchingExecutor
@@ -58,7 +58,7 @@ def slice_setup():
     variables = _spread(net.init(jax.random.PRNGKey(0),
                                  jnp.zeros((1, *jcfg.IMAGE_SHAPE)),
                                  jnp.zeros((1, 4, 4)), train=False), rng)
-    model = MaskYOLO("inference", PortTiny(), seed=0)
+    model = MaskYOLO("inference", PortTiny(), seed=0, device="cpu")
     model.load_jax_variables(variables)
     images = (rng.rand(3, *jcfg.IMAGE_SHAPE) * 255).astype(np.uint8)
     return jcfg, net, variables, model, images
@@ -165,15 +165,26 @@ def test_detect_single_image(slice_setup):
         model.detect(images[0].astype(np.float32))
 
 
+def test_model_defaults_to_the_card(monkeypatch):
+    """Without `device` the entry points ask for the card: with no CUDA
+    device they raise, and never fall back to the CPU."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        MaskYOLO("inference", PortTiny())
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        quant.QuantizedDetector.from_variables({}, PortTiny(), np.zeros((1, 64, 64, 3)))
+
+
 def test_model_refuses_cuda_without_a_gpu(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         MaskYOLO("inference", PortTiny(), device="cuda")
     # training is ported in f32; bf16 training raises, naming its ROADMAP item
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        MaskYOLO("training", type("Bf16", (PortTiny,), {"COMPUTE_DTYPE": "bfloat16"})())
+        MaskYOLO("training", type("Bf16", (PortTiny,), {"COMPUTE_DTYPE": "bfloat16"})(),
+                 device="cpu")
     with pytest.raises(ValueError):
-        MaskYOLO("serving", PortTiny())
+        MaskYOLO("serving", PortTiny(), device="cpu")
     with pytest.raises(NotImplementedError, match="resnet50_fpn"):
         torch_network.MaskYoloNet(3, 2, backbone="resnet50_fpn")
 

@@ -98,7 +98,7 @@ def variables():
 
 
 def port_model(cfg, v, mode="training", **kw):
-    model = MaskYOLO(mode, cfg, seed=0, **kw)
+    model = MaskYOLO(mode, cfg, seed=0, device="cpu", **kw)
     model.load_jax_variables(v)
     return model
 
@@ -352,7 +352,7 @@ def test_checkpoint_save_and_resume_restore_everything(variables, tmp_path):
     path = str(tmp_path / "ckpt.pt")
     state.save_checkpoint(path, st, epoch=4)
 
-    fresh = MaskYOLO("training", cfg, seed=3)
+    fresh = MaskYOLO("training", cfg, seed=3, device="cpu")
     tx2 = state.make_optimizer(1e-3, cfg, dict(fresh.net.named_parameters()))
     st2, epoch = state.resume_train_state(path, state.create_train_state(fresh.net, tx2), tx2)
     assert epoch == 4 and st2.step == 2 and st2.opt_state["count"] == 2
@@ -377,7 +377,7 @@ def test_maskyolo_train_checkpoints_history_and_resume(tmp_path):
     cfg = port_config(ShapesTiny(), STEPS_PER_EPOCH=2, VALIDATION_STEPS=1, MAX_CHECKPOINTS=2)
     train_ds, val_ds = shapes(6), shapes(2, seed=3)
     seen = []
-    model = MaskYOLO("training", cfg, model_dir=str(tmp_path), seed=0)
+    model = MaskYOLO("training", cfg, model_dir=str(tmp_path), seed=0, device="cpu")
     st = model.train(train_ds, val_ds, 1e-3, epochs=2, verbose=False,
                      custom_callbacks=[lambda e, m, vl, s: seen.append((e, vl, s.step))])
     assert model.epoch == 2 and st.step == 4 and [s[0] for s in seen] == [0, 1]
@@ -387,7 +387,7 @@ def test_maskyolo_train_checkpoints_history_and_resume(tmp_path):
     assert [c[-8:] for c in ckpts] == ["e0001.pt", "e0002.pt"]
     assert not model.net.training           # back to inference BatchNorm
 
-    resumed = MaskYOLO("training", cfg, model_dir=str(tmp_path), seed=1)
+    resumed = MaskYOLO("training", cfg, model_dir=str(tmp_path), seed=1, device="cpu")
     st = resumed.train(train_ds, val_ds, 1e-3, epochs=3, verbose=False,
                        resume_from=str(tmp_path / ckpts[-1]))
     assert resumed.epoch == 3 and st.step == 6
@@ -396,7 +396,7 @@ def test_maskyolo_train_checkpoints_history_and_resume(tmp_path):
     ckpts = sorted(p for p in os.listdir(tmp_path) if p.startswith("saved_model_"))
     assert [c[-8:] for c in ckpts] == ["e0002.pt", "e0003.pt"]   # MAX_CHECKPOINTS
 
-    stopped = MaskYOLO("yolo", cfg, model_dir=str(tmp_path / "yolo"), seed=0)
+    stopped = MaskYOLO("yolo", cfg, model_dir=str(tmp_path / "yolo"), seed=0, device="cpu")
     stopped.train(train_ds, val_ds, 1e-3, epochs=5, verbose=False, stop_after_epoch=1)
     assert stopped.epoch == 1
 
@@ -405,7 +405,8 @@ def test_yolo_trainable_false_freezes_backbone_and_yolo_head(tmp_path):
     """yolo_trainable=False freezes the image→YOLO-output path; the mask
     head trains and the frozen layers' BatchNorm statistics still move."""
     cfg = port_config(ShapesTiny(), STEPS_PER_EPOCH=2, VALIDATION_STEPS=1)
-    model = MaskYOLO("training", cfg, model_dir=str(tmp_path), yolo_trainable=False)
+    model = MaskYOLO("training", cfg, model_dir=str(tmp_path), yolo_trainable=False,
+                     device="cpu")
     before = {k: v.clone() for k, v in model.net.state_dict().items()}
     model.train(shapes(4), shapes(2, seed=3), 1e-3, epochs=1, verbose=False)
     after = model.net.state_dict()
@@ -421,7 +422,8 @@ def test_yolo_trainable_false_freezes_backbone_and_yolo_head(tmp_path):
 
 def test_save_and_load_weights_by_name_and_exclude(tmp_path):
     cfg = port_config(ShapesTiny())
-    a, b = MaskYOLO("training", cfg, seed=0), MaskYOLO("training", cfg, seed=1)
+    a = MaskYOLO("training", cfg, seed=0, device="cpu")
+    b = MaskYOLO("training", cfg, seed=1, device="cpu")
     path = str(tmp_path / "w.pt")
     a.save_weights(path)
     b_mask = b.net.mask.mask_conv1.weight.detach().clone()
@@ -438,14 +440,14 @@ def test_training_weights_follow_flax_default_init():
     """Training mode draws LeCun-normal kernels truncated at 2 std, zero
     biases and identity BatchNorm; inference mode keeps He-normal."""
     cfg = port_config(ShapesTiny())
-    net = MaskYOLO("training", cfg, seed=0).net
+    net = MaskYOLO("training", cfg, seed=0, device="cpu").net
     w = net.yolo.block7.conv_pw.weight.detach()             # 1×1, fan_in 512
     std = np.sqrt(1.0 / 512) / 0.87962566103423978
     assert abs(w.std().item() - std * 0.8796) < 0.05 * std
     assert w.abs().max().item() <= 2 * std
     assert not net.feature_map.bias.any()
     assert torch.equal(net.backbone.conv1.bn.running_var, torch.ones(32))
-    inference = MaskYOLO("inference", cfg, seed=0).net
+    inference = MaskYOLO("inference", cfg, seed=0, device="cpu").net
     assert inference.yolo.block7.conv_pw.weight.std().item() > 1.3 * w.std().item()
 
 
@@ -457,18 +459,23 @@ def test_held_out_options_raise_naming_their_roadmap_item(tmp_path, what):
 
     def train(**over):
         MaskYOLO("training", port_config(ShapesTiny(), **over),
-                 model_dir=str(tmp_path)).train(ds, ds, 1e-3, epochs=1, verbose=False)
+                 model_dir=str(tmp_path), device="cpu").train(ds, ds, 1e-3, epochs=1, verbose=False)
 
     cases = {
-        "bf16": lambda: MaskYOLO("yolo", port_config(ShapesTiny(), COMPUTE_DTYPE="bfloat16")),
-        "augmentation": lambda: MaskYOLO("training", cfg, model_dir=str(tmp_path)).train(
+        "bf16": lambda: MaskYOLO("yolo", port_config(ShapesTiny(), COMPUTE_DTYPE="bfloat16"),
+                                 device="cpu"),
+        "augmentation": lambda: MaskYOLO("training", cfg, model_dir=str(tmp_path),
+                                         device="cpu").train(
             ds, ds, 1e-3, epochs=1, augmentation=lambda im, m: (im, m)),
         "data_workers": lambda: train(DATA_WORKERS=2),
-        "profile_dir": lambda: MaskYOLO("training", cfg, model_dir=str(tmp_path)).train(
+        "profile_dir": lambda: MaskYOLO("training", cfg, model_dir=str(tmp_path),
+                                        device="cpu").train(
             ds, ds, 1e-3, epochs=1, verbose=False, profile_dir=str(tmp_path)),
         "resnet50_fpn": lambda: MaskYOLO("training",
-                                         port_config(ShapesTiny(), BACKBONE="resnet50_fpn")),
-        "keras_h5": lambda: MaskYOLO("yolo", cfg, yolo_pretrain_dir="pretrained.h5"),
+                                         port_config(ShapesTiny(), BACKBONE="resnet50_fpn"),
+                                         device="cpu"),
+        "keras_h5": lambda: MaskYOLO("yolo", cfg, yolo_pretrain_dir="pretrained.h5",
+                                     device="cpu"),
         "data_parallel": lambda: train(DATA_PARALLEL=2),
     }
     with pytest.raises(NotImplementedError, match="ROADMAP"):

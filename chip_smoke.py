@@ -3,19 +3,27 @@
 
     python3 chip_smoke.py          # from the repository root; needs CUDA and nvcc
     python3 chip_smoke.py --parent-csrc DIR
-                                   # also build K1 and K3 from DIR and time them
-                                   # against the current ones, in turns; DIR holds
-                                   # fused_ds_block.cu and fused_mask_branch.cu of
-                                   # commit 112676f (the layouts ParentKernels
-                                   # passes), e.g. git show
-                                   # 112676f:mask_yolo_tpu_torch/csrc/<file>
-                                   # > build/parent_csrc/<file>
+                                   # also build whichever of crop_rois.cu,
+                                   # fused_ds_block.cu and fused_mask_branch.cu DIR
+                                   # holds and time them against the current
+                                   # kernels, in turns (old, new, new, old), e.g.
+                                   # git show <commit>:mask_yolo_tpu_torch/csrc/<file>
+                                   # > build/parent_csrc/<file>. The crop's C
+                                   # interface is 0aa2710's (backward scratch
+                                   # 32*B*K*P bytes), K1's and K3's 112676f's
+                                   # (the weight layouts ParentKernels passes)
 
 Phases, each fatal on failure (nothing is caught):
   1. device      the card's name and power limit; TF32 off for f32 references
-  2. build       the CUDA crop kernel from mask_yolo_tpu_torch/csrc
-  3. kernel      crop kernel vs its plain PyTorch twin at the detect path's
-                 shapes, f32 and bf16, with CUDA-event times of both
+  2. build       the CUDA crop kernel (K2) from mask_yolo_tpu_torch/csrc, with
+                 ptxas's registers, shared memory and spills
+  3. kernel      K2 vs its plain PyTorch twin at five shapes (FWD_SHAPES: the
+                 detect path's in bf16 and f32, batch 128, the training path's
+                 K=32 in f32, CocoStyleConfig's 52² with K=48), with CUDA-event
+                 times back to back (L2 warm) and cycling through input and
+                 output copies past 100 MB (cold), the parent's in turns, and
+                 the F.grid_sample yardstick (library_ms; held to the plain
+                 version at f32)
   4. slice       MaskYOLO.detect_batch at 224² (ShapesConfig widths) in bf16
                  and f32; the kernel's launches are counted, and the same
                  trunk outputs go through the plain-crop mask branch too
@@ -39,7 +47,12 @@ Phases, each fatal on failure (nothing is caught):
  T1. kernel      the crop kernel's backward (K2 backward) vs its plain version,
                  f32, at the training shape (B=16, K=32, 28x28x256, P=14) and
                  at CocoStyleConfig's (B=4, K=128, 52x52x256), with off-map,
-                 zero-area and mirrored boxes; a bf16 fmap with grad raises
+                 zero-area and mirrored boxes; two runs bit-identical; its
+                 index kernel's band lists and column ranges, read from the
+                 scratch, equal to roi_crop.backward_index's; times
+                 beside the parent's and autograd through F.grid_sample
+                 (library_ms, held to the plain version); a bf16 fmap with
+                 grad raises
  T2. training    MaskYOLO("training", ShapesConfig widths, f32).train on a
                  seeded Shapes dataset (64 train, 16 val images) for 2 epochs:
                  exactly one K2 forward per train and validation step and one
@@ -61,13 +74,16 @@ sheet for the H100 SXM at 700 W).
 Times are CUDA-event means over back-to-back calls behind a sleep kernel
 that lets the host enqueue them all first (cuda_ms), so a kernel that runs
 faster than Python launches it reads its device time; a call that
-synchronises reads its wall time.
+synchronises reads its wall time. K2's kernels (this tree's and the
+parent's) are timed through their C entry points on buffers held here
+(CropLib), so both run on the same inputs and outputs.
 """
 
 from __future__ import annotations
 
 import argparse
 import ctypes
+import itertools
 import json
 import shutil
 import subprocess
@@ -78,6 +94,7 @@ from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 from torch.profiler import ProfilerActivity, profile
 
 from mask_yolo_tpu_torch import CocoStyleConfig, MaskYOLO
@@ -101,7 +118,18 @@ from mask_yolo_tpu_torch.train import trainer
 
 SEED = 0
 BATCH = 16
-KERNEL_SHAPE = dict(b=16, h=28, w=28, c=256, k=10, pool=14)   # the detect path's crop
+# K2 forward: the detect path's crop (bf16 as bench.py, and f32), batch 128
+# (phase 6's batch), the training path's (f32, MASK_TRAIN_TOP_ROIS 32) and
+# CocoStyleConfig's 416² (52x52x256, MASK_TOP_K 48); the first is the JSON
+# line's headline shape
+FWD_SHAPES = {
+    "detect": dict(dtype=torch.bfloat16, b=16, h=28, w=28, c=256, k=10, pool=14),
+    "detect_f32": dict(dtype=torch.float32, b=16, h=28, w=28, c=256, k=10, pool=14),
+    "b128": dict(dtype=torch.bfloat16, b=128, h=28, w=28, c=256, k=10, pool=14),
+    "train_f32": dict(dtype=torch.float32, b=16, h=28, w=28, c=256, k=32, pool=14),
+    "coco416": dict(dtype=torch.bfloat16, b=4, h=52, w=52, c=256, k=48, pool=14),
+}
+COLD_BYTES = 100e6                 # cold timing cycles through copies past this (L2 is 50 MB)
 CROP_TOL = {torch.float32: 1e-5, torch.bfloat16: 3e-2}        # max|Δ| / max|plain|
 MASK_AGREE = 0.995
 # the stride-1 DS blocks of the trunk (H, W, C, O, int8 output?): blocks 1, 3,
@@ -217,42 +245,192 @@ def random_boxes(rng, b, k):
     return boxes.astype(np.float32)
 
 
-def phase_kernel(dev, rng):
-    """Crop kernel vs plain twin; returns {dtype: [max_abs_err, ms, plain_ms,
-    (bound_ms, bound_by)]}."""
-    s = KERNEL_SHAPE
-    fmap32 = torch.tensor(rng.standard_normal((s["b"], s["h"], s["w"], s["c"]),
-                                              dtype=np.float32), device=dev)
+def sample_coords(lo, hi, size, pool):
+    """interp_matrix's f32 sample coordinates c [..., pool] along an axis of
+    `size` pixels, and whether each lies on the map."""
+    n = size - 1
+    if pool > 1:
+        steps = torch.arange(pool, dtype=torch.float32, device=lo.device) / (pool - 1)
+        c = lo[..., None] * n + steps * ((hi - lo)[..., None] * n)
+    else:
+        c = 0.5 * (lo + hi)[..., None] * n
+    return c, (c >= 0) & (c <= n)
+
+
+def grid_sample_operands(fmap, boxes, pool):
+    """K2's function as one F.grid_sample call, the library yardstick (the
+    port never calls it): (the fmap as an NCHW view, grid [B, K*P, P, 2] in
+    the fmap's dtype, mask [B, K, P, P, 1] of the samples on the map).
+    Needs H, W > 1."""
+    b, h, w, _ = fmap.shape
+    k = boxes.shape[1]
+    x1, y1, x2, y2 = boxes.float().unbind(-1)
+    cx, on_x = sample_coords(x1, x2, w, pool)                    # [B, K, P]
+    cy, on_y = sample_coords(y1, y2, h, pool)
+    gx = (2 * cx / (w - 1) - 1)[:, :, None, :].expand(b, k, pool, pool)
+    gy = (2 * cy / (h - 1) - 1)[:, :, :, None].expand(b, k, pool, pool)
+    grid = torch.stack([gx, gy], -1).reshape(b, k * pool, pool, 2).to(fmap.dtype)
+    return fmap.permute(0, 3, 1, 2), grid, (on_y[..., :, None] & on_x[..., None, :])[..., None]
+
+
+def grid_sample_crop(x, grid):
+    """[B, C, K*P, P]: bilinear samples, coordinates clamped to the border."""
+    return F.grid_sample(x, grid, mode="bilinear", padding_mode="border", align_corners=True)
+
+
+def from_grid_layout(out, k, pool):
+    """[B, C, K*P, P] -> [B, K, P, P, C]."""
+    b, c = out.shape[:2]
+    return out.reshape(b, c, k, pool, pool).permute(0, 2, 3, 4, 1)
+
+
+def to_grid_layout(g):
+    """[B, K, P, P, C] -> [B, C, K*P, P]."""
+    b, k, pool, _, c = g.shape
+    return g.permute(0, 4, 1, 2, 3).reshape(b, c, k * pool, pool)
+
+
+def grid_sample_backward(fmap, boxes, g):
+    """(d_fmap of K2's function through autograd of the yardstick, and a
+    closure that recomputes it on the same graph, for timing)."""
+    fmap = fmap.detach().requires_grad_()
+    x, grid, mask = grid_sample_operands(fmap, boxes, g.shape[2])
+    out = grid_sample_crop(x, grid)
+    gm = to_grid_layout(g * mask)
+    grad = lambda: torch.autograd.grad(out, fmap, gm, retain_graph=True)[0]   # noqa: E731
+    return grad(), grad
+
+
+class CropLib:
+    """K2's forward and backward of one built library (this tree's or, with
+    --parent-csrc, an earlier commit's), called through its C entry points
+    on buffers the caller owns: for timing only, never a main path, so it
+    counts no launches. scratch_bytes(b, h, w, k, pool): the bytes of
+    scratch that library's backward takes."""
+
+    def __init__(self, path, scratch_bytes):
+        self.fns = roi_crop.bind(ctypes.CDLL(str(path)), (
+            "crop_rois_f32", "crop_rois_bf16", "crop_rois_backward_f32"))
+        self.scratch_bytes = scratch_bytes
+
+    def _call(self, symbol, tensors, *dims):
+        rc = self.fns[symbol](*(t.data_ptr() for t in tensors), *dims,
+                              torch.cuda.current_stream().cuda_stream)
+        if rc:
+            raise RuntimeError(f"{symbol} failed with CUDA error {rc}")
+
+    def forward(self, fmap, boxes, out):
+        b, h, w, c = fmap.shape
+        self._call(roi_crop._SYMBOLS[fmap.dtype], (fmap, boxes, out), b, h, w, c,
+                   out.shape[1], out.shape[2])
+
+    def backward_scratch(self, g, hw):
+        b, k, pool = g.shape[:3]
+        return torch.empty(self.scratch_bytes(b, *hw, k, pool), dtype=torch.uint8,
+                           device=g.device)
+
+    def backward(self, g, boxes, scratch, out):
+        b, k, pool, _, c = g.shape
+        self._call("crop_rois_backward_f32", (g, boxes, scratch, out), b, out.shape[1],
+                   out.shape[2], c, k, pool)
+
+
+def time_turns(new, old=None, iters=50):
+    """(new's ms, old's ms or None, the four or two readings): old, new,
+    new, old in turns when there is an old."""
+    if old is None:
+        k1, k2 = cuda_ms(new, iters), cuda_ms(new, iters)
+        return (k1 + k2) / 2, None, (k1, k2)
+    o1, k1, k2, o2 = cuda_ms(old, iters), cuda_ms(new, iters), cuda_ms(new, iters), cuda_ms(old, iters)
+    return (k1 + k2) / 2, (o1 + o2) / 2, (o1, k1, k2, o2)
+
+
+def us(ms, readings):
+    return f"{ms * 1e3:.2f} us (" + ", ".join(f"{r * 1e3:.2f}" for r in readings) + ")"
+
+
+def check_crop(tag, fmap, boxes, pool, tol):
+    """K2 through its wrapper vs its plain twin; returns max|Δ|."""
+    got = crop_rois(fmap, boxes, pool).float()
+    want = crop_and_resize(fmap, boxes, (pool, pool)).float()
+    torch.cuda.synchronize()
+    err = (got - want).abs().max().item()
+    ratio = err / want.abs().max().item()
+    log(f"[kernel] K2 {tag}: max|kernel-plain| = {err:.3e}, / max|plain| = {ratio:.3e} "
+        f"(limit {tol})")
+    if not (torch.isfinite(got).all() and ratio <= tol):
+        raise AssertionError(f"the crop kernel disagrees with its plain twin ({tag})")
+    return err, want
+
+
+def phase_kernel(dev, rng, new, parent=None):
+    """K2 forward at each of FWD_SHAPES: the wrapper vs the plain twin, then
+    times through `new` (and `parent`, a CropLib) warm and cold, the plain
+    twin's and grid_sample's. Returns {shape tag: dict of the JSON keys}."""
     results = {}
-    for dtype in (torch.float32, torch.bfloat16):
-        fmap = fmap32.to(dtype)
-        for k in (s["k"], 7):   # the detect path's K, and a prime K
-            boxes = torch.tensor(random_boxes(rng, s["b"], k), device=dev)
-            got = crop_rois(fmap, boxes, s["pool"]).float()
-            want = crop_and_resize(fmap, boxes, (s["pool"], s["pool"])).float()
+    for tag, s in FWD_SHAPES.items():
+        dtype, b, h, w, c, k, pool = (s[key] for key in ("dtype", "b", "h", "w", "c", "k", "pool"))
+        what = f"{str(dtype)[6:]} B={b} K={k} {h}x{w}x{c} P={pool}"
+        fmap = torch.tensor(rng.standard_normal((b, h, w, c), dtype=np.float32),
+                            device=dev).to(dtype)
+        if tag.startswith("detect"):   # and a prime K
+            check_crop(f"{str(dtype)[6:]} B={b} K=7", fmap,
+                       torch.tensor(random_boxes(rng, b, 7), device=dev), pool, CROP_TOL[dtype])
+        boxes = torch.tensor(random_boxes(rng, b, k), device=dev)
+        err, want = check_crop(what, fmap, boxes, pool, CROP_TOL[dtype])
+        out = torch.empty_like(want, dtype=dtype)
+        old_out = torch.empty_like(out)
+        if parent:
+            parent.forward(fmap, boxes, old_out)
             torch.cuda.synchronize()
-            err = (got - want).abs().max().item()
-            ratio = err / want.abs().max().item()
-            log(f"[kernel] {dtype} K={k}: max|kernel-plain| = {err:.3e}, "
-                f"/ max|plain| = {ratio:.3e} (limit {CROP_TOL[dtype]})")
-            if not (torch.isfinite(got).all() and ratio <= CROP_TOL[dtype]):
-                raise AssertionError(f"crop kernel disagrees with its plain twin ({dtype}, K={k})")
-            if k == s["k"]:
-                results[dtype] = [err]
-        boxes = torch.tensor(random_boxes(rng, s["b"], s["k"]), device=dev)
-        kernel = lambda: crop_rois(fmap, boxes, s["pool"])                    # noqa: E731
-        plain = lambda: crop_and_resize(fmap, boxes, (s["pool"], s["pool"]))  # noqa: E731
-        p1, k1, k2, p2 = cuda_ms(plain), cuda_ms(kernel), cuda_ms(kernel), cuda_ms(plain)
-        ms, plain_ms = (k1 + k2) / 2, (p1 + p2) / 2
-        out_elems = s["b"] * s["k"] * s["pool"] ** 2 * s["c"]
+            log(f"[kernel] K2 {what}: max|kernel-parent| = "
+                f"{(old_out.float() - crop_rois(fmap, boxes, pool).float()).abs().max().item():.3e}")
+        # warm: the same buffers back to back (the detect path's case: the
+        # neck has just written the fmap); cold: copies cycled past COLD_BYTES
+        ms, parent_ms, warm = time_turns(lambda: new.forward(fmap, boxes, out),
+                                         parent and (lambda: parent.forward(fmap, boxes, old_out)))
+        n = max(2, int(np.ceil(COLD_BYTES / nbytes(fmap, boxes, out))))
+        bufs = [(fmap.clone(), boxes.clone(), torch.empty_like(out)) for _ in range(n)]
+        cyc_new, cyc_old = itertools.cycle(bufs), itertools.cycle(bufs)
+        cold_ms, cold_parent_ms, cold = time_turns(
+            lambda: new.forward(*next(cyc_new)), parent and (lambda: parent.forward(*next(cyc_old))))
+        del bufs, cyc_new, cyc_old
+        plain = lambda: crop_and_resize(fmap, boxes, (pool, pool))   # noqa: E731
+        p1 = cuda_ms(plain, 20)
+        x, grid, mask = grid_sample_operands(fmap, boxes, pool)
+        library_ms = cuda_ms(lambda: grid_sample_crop(x, grid))
+        p2 = cuda_ms(plain, 20)
+        lib_txt = "time only (its grid is bf16)"
+        if dtype == torch.float32:
+            lib_err = ((from_grid_layout(grid_sample_crop(x, grid), k, pool) * mask - want)
+                       .abs().max().item() / want.abs().max().item())
+            lib_txt = f"masked output vs plain {lib_err:.3e} of max (limit {CROP_TOL[dtype]})"
+            if lib_err > CROP_TOL[dtype]:
+                raise AssertionError(f"the grid_sample yardstick disagrees with the plain crop ({what})")
+        out_elems = out.numel()
         # 9 f32 operations per output value: two taps in y at two columns, then x
-        bnd = bound(crop_fmap_bytes(fmap, boxes, s["pool"]) + nbytes(boxes)
+        bnd = bound(crop_fmap_bytes(fmap, boxes, pool) + nbytes(boxes)
                     + out_elems * fmap.element_size(), {"f32": 9 * out_elems})
-        log(f"[kernel] {dtype} time at B=16, 28x28x256, K=10, P=14: kernel "
-            f"{ms * 1e3:.1f} us ({k1 * 1e3:.1f}, {k2 * 1e3:.1f}), plain "
-            f"{plain_ms * 1e3:.1f} us ({p1 * 1e3:.1f}, {p2 * 1e3:.1f}); bound "
-            f"{bnd[0] * 1e3:.2f} us ({bnd[1]})")
-        results[dtype] += [ms, plain_ms, bnd]
+        old_txt = (f"; parent warm {us(parent_ms, warm[::3])}, cold {us(cold_parent_ms, cold[::3])}"
+                   if parent else "")
+        log(f"[kernel] K2 {what}: kernel warm {us(ms, warm[1:3] if parent else warm)}, cold "
+            f"{us(cold_ms, cold[1:3] if parent else cold)} ({n} copies){old_txt}; plain "
+            f"{us((p1 + p2) / 2, (p1, p2))}; grid_sample {library_ms * 1e3:.2f} us, {lib_txt}; "
+            f"bound {bnd[0] * 1e3:.2f} us ({bnd[1]})")
+        results[tag] = {"max_abs_err": err, "ms": ms, "cold_ms": cold_ms, "parent_ms": parent_ms,
+                        "cold_parent_ms": cold_parent_ms, "plain_ms": (p1 + p2) / 2,
+                        "bound_ms": bnd[0], "bound_by": bnd[1], "library_ms": library_ms,
+                        "at": what}
+        del fmap, boxes, out, old_out, want, x, grid, mask
+        torch.cuda.empty_cache()
+    # edge shapes: channels that fill no 16-byte vector, one row or one
+    # column, P = 1 or > 32
+    for dtype in (torch.float32, torch.bfloat16):
+        for b, h, w, c, k, pool in ((2, 1, 5, 6, 3, 1), (1, 7, 1, 12, 2, 3), (1, 9, 70, 20, 3, 33)):
+            fmap = torch.tensor(rng.standard_normal((b, h, w, c), dtype=np.float32),
+                                device=dev).to(dtype)
+            check_crop(f"{str(dtype)[6:]} B={b} K={k} {h}x{w}x{c} P={pool}", fmap,
+                       torch.tensor(random_boxes(rng, b, k), device=dev), pool, CROP_TOL[dtype])
     return results
 
 
@@ -350,20 +528,20 @@ def phase_throughput(model, cfg, dev, rng, smi):
 # ---- phases 7-11: the int8 path --------------------------------------------
 
 
-def phase_build_int8(pending):
-    """Join the parallel nvcc builds of K1 and K3 (and of the parent's, when
-    asked); print seconds and what ptxas says of each kernel: registers,
-    shared memory, spills."""
+def join_builds(pending, names):
+    """Join the parallel nvcc builds of `names` (keys of `pending`); print
+    seconds and what ptxas says of each kernel: registers, shared memory,
+    spills. Returns {name: library path}."""
     libs = {}
-    for name, fut in pending.items():
-        lib, seconds = fut.result()
+    for name in names:
+        lib, seconds = pending.pop(name).result()
         libs[name] = lib
         ptxas = [line.split("ptxas info    : ")[-1].strip()
                  for line in lib.with_suffix(".log").read_text().splitlines()
                  if "Used" in line or "spill" in line or "Compiling entry" in line]
         log(f"[build] {name}: {lib.name} in {seconds:.1f} s; ptxas: " + " | ".join(ptxas))
-    for name in ("fused_ds_block", "fused_mask_branch"):
-        _build.load(name)
+        if not name.startswith("parent"):
+            _build.load(name)
     return libs
 
 
@@ -374,19 +552,23 @@ def timed_build(name, csrc=_build.CSRC):
 
 
 class ParentKernels:
-    """K1 and K3 as an earlier commit built them (libraries from copies of
-    its csrc/*.cu), called with that commit's weight layouts: wpw [C, O];
-    w1..w4 [9 Cin, co] and wd [co, 4 co]. For timing against the current
-    kernels only."""
+    """K1 and K3 as commit 112676f built them (libraries from copies of its
+    csrc/*.cu; either may be None), called with that commit's weight
+    layouts: wpw [C, O]; w1..w4 [9 Cin, co] and wd [co, 4 co]. For timing
+    against the current kernels only."""
 
     def __init__(self, ds_lib, mask_lib):
-        self.ds = ctypes.CDLL(str(ds_lib)).fused_ds_block
-        self.ds.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 5
-                            + [ctypes.c_float] * 2 + [ctypes.c_void_p])
-        self.mask = ctypes.CDLL(str(mask_lib)).fused_mask_branch
-        self.mask.argtypes = ([ctypes.c_void_p] * 15 + [ctypes.c_int] * 9
-                              + [ctypes.c_float] * 6 + [ctypes.c_void_p])
-        self.ds.restype = self.mask.restype = ctypes.c_int
+        self.ds = self.mask = None
+        if ds_lib:
+            self.ds = ctypes.CDLL(str(ds_lib)).fused_ds_block
+            self.ds.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 5
+                                + [ctypes.c_float] * 2 + [ctypes.c_void_p])
+            self.ds.restype = ctypes.c_int
+        if mask_lib:
+            self.mask = ctypes.CDLL(str(mask_lib)).fused_mask_branch
+            self.mask.argtypes = ([ctypes.c_void_p] * 15 + [ctypes.c_int] * 9
+                                  + [ctypes.c_float] * 6 + [ctypes.c_void_p])
+            self.mask.restype = ctypes.c_int
 
     def ds_block(self, x, kdw, dwsb, wpw_co, pwsb, a_pw, s_out):
         b, h, w, c = x.shape
@@ -608,8 +790,10 @@ def quantized_model(cfg, dev):
 def phase_kernels_int8(rng, dev, model224, cfg224, parent=None):
     """K1 and K3 vs plain at the 224² slice's shapes (batch 16 and 128) and
     at 416²; the GEMM-core yardstick of K1's widest pointwise product."""
-    k1 = check_k1(rng, dev, DS_224, BATCH, "224", parent)
-    k1["b128"] = check_k1(rng, dev, DS_224, THROUGHPUT_BATCH, "224", parent)
+    parent_k1 = parent if parent and parent.ds else None
+    parent = parent if parent and parent.mask else None
+    k1 = check_k1(rng, dev, DS_224, BATCH, "224", parent_k1)
+    k1["b128"] = check_k1(rng, dev, DS_224, THROUGHPUT_BATCH, "224", parent_k1)
     check_k1(rng, dev, DS_416, 4, "416")
     for b, key in ((BATCH, None), (THROUGHPUT_BATCH, "b128")):
         gemm = int_mm_ms(dev, b * 7 * 7, 1024, 1024)
@@ -733,34 +917,98 @@ def backward_boxes(rng, b, k):
     return boxes
 
 
-def phase_train_kernel(dev, rng):
-    """K2 backward vs its plain version; returns (max_abs_err, ms, plain_ms,
-    (bound_ms, bound_by)) at the training shape."""
-    result = None
+def check_backward_index(tag, scratch, boxes, hw, pool):
+    """The index kernel's output, read from the backward's scratch, against
+    its plain version `roi_crop.backward_index`: every band's list of sample
+    rows, and every ROI's per-column px ranges, equal. Logs the lists'
+    lengths, the gather's work per block, as the kernel counted them."""
+    b, k = boxes.shape[:2]
+    lists, first, count = roi_crop.index_from_scratch(scratch, b, *hw, k, pool)
+    p_lists, p_first, p_count = roi_crop.backward_index(boxes, hw, pool)
+    same = (torch.equal(first, p_first.cpu()) and torch.equal(count, p_count.cpu())
+            and all(torch.equal(r, p.cpu()) for image, p_image in zip(lists, p_lists)
+                    for r, p in zip(image, p_image)))
+    lengths = [len(rows) for image in lists for rows in image]
+    log(f"[train-kernel] K2 backward index {tag}: the kernel's lists and column ranges "
+        f"{'equal' if same else 'DIFFER FROM'} the plain version's; sample rows the kernel "
+        f"listed a band of {roi_crop.BWD_BAND_ROWS} fmap rows: mean {np.mean(lengths):.1f}, "
+        f"max {max(lengths)}, over {len(lengths)} bands")
+    if not same:
+        raise AssertionError(f"the K2 backward's index kernel disagrees with backward_index ({tag})")
+
+
+def phase_train_kernel(dev, rng, new, parent=None):
+    """K2 backward at each of BWD_SHAPES: the wrapper vs its plain version
+    and against itself (two runs bit-identical), the index kernel's output
+    vs its plain version, then times through `new`
+    (and `parent`, a CropLib), the plain version's and autograd through
+    grid_sample's. Returns a list of dicts of the JSON keys, one a shape."""
+    results = []
     for s in BWD_SHAPES:
         boxes = torch.tensor(backward_boxes(rng, s["b"], s["k"]), device=dev)
         g = torch.tensor(rng.standard_normal((s["b"], s["k"], s["pool"], s["pool"], s["c"]),
                                              dtype=np.float32), device=dev)
         hw = (s["h"], s["w"])
         got = crop_rois_backward(g, boxes, hw)
+        again = crop_rois_backward(g, boxes, hw)
         want = crop_and_resize_backward(g, boxes, hw)
         torch.cuda.synchronize()
         err = (got - want).abs().max().item()
         ratio = err / want.abs().max().item()
-        kernel = lambda: crop_rois_backward(g, boxes, hw)          # noqa: E731
-        plain = lambda: crop_and_resize_backward(g, boxes, hw)     # noqa: E731
-        p1, k1, k2, p2 = cuda_ms(plain, 20), cuda_ms(kernel, 20), cuda_ms(kernel, 20), cuda_ms(plain, 20)
+        same = torch.equal(got, again)
         tag = f"B={s['b']}, K={s['k']}, {s['h']}x{s['w']}x{s['c']}, P={s['pool']}"
+        log(f"[train-kernel] K2 backward f32 {tag}: max|kernel-plain| = {err:.3e}, / max|plain| "
+            f"= {ratio:.3e} (limit {BWD_TOL}); two runs {'bit-identical' if same else 'DIFFER'}")
+        if not (torch.isfinite(got).all() and ratio <= BWD_TOL and same):
+            raise AssertionError(f"the K2 backward disagrees with its plain version or itself ({tag})")
+        out, old_out = torch.empty_like(want), torch.empty_like(want)
+        scratch = new.backward_scratch(g, hw)
+        new.backward(g, boxes, scratch, out)
+        check_backward_index(tag, scratch, boxes, hw, s["pool"])
+        old_scratch = parent.backward_scratch(g, hw) if parent else None
+        if parent:
+            parent.backward(g, boxes, old_scratch, old_out)
+            torch.cuda.synchronize()
+            log(f"[train-kernel] K2 backward {tag}: max|kernel-parent| = "
+                f"{(old_out - got).abs().max().item():.3e}")
+        ms, parent_ms, turns = time_turns(
+            lambda: new.backward(g, boxes, scratch, out),
+            parent and (lambda: parent.backward(g, boxes, old_scratch, old_out)), 20)
+        plain = lambda: crop_and_resize_backward(g, boxes, hw)     # noqa: E731
+        p1 = cuda_ms(plain, 20)
+        lib_grad, lib = grid_sample_backward(g.new_zeros((s["b"], *hw, s["c"])), boxes, g)
+        lib_err = (lib_grad - want).abs().max().item() / want.abs().max().item()
+        library_ms = cuda_ms(lib, 20)
+        p2 = cuda_ms(plain, 20)
+        if lib_err > BWD_TOL:
+            raise AssertionError(f"autograd through grid_sample disagrees with the plain "
+                                 f"backward ({tag})")
         # 9 f32 operations per gradient value, as the forward's per output value
         bnd = bound(nbytes(g, boxes, want), {"f32": 9 * g.numel()})
-        log(f"[train-kernel] K2 backward f32 {tag}: max|kernel-plain| = {err:.3e}, / max|plain| "
-            f"= {ratio:.3e} (limit {BWD_TOL}); kernel {(k1 + k2) / 2 * 1e3:.1f} us ({k1 * 1e3:.1f}, "
-            f"{k2 * 1e3:.1f}), plain {(p1 + p2) / 2 * 1e3:.1f} us ({p1 * 1e3:.1f}, {p2 * 1e3:.1f}); "
-            f"bound {bnd[0] * 1e3:.2f} us ({bnd[1]})")
-        if not (torch.isfinite(got).all() and ratio <= BWD_TOL):
-            raise AssertionError(f"the K2 backward disagrees with its plain version ({tag})")
-        if result is None:
-            result = (err, (k1 + k2) / 2, (p1 + p2) / 2, bnd)
+        old_txt = f", parent {us(parent_ms, turns[::3])}" if parent else ""
+        log(f"[train-kernel] K2 backward {tag}: kernel {us(ms, turns[1:3] if parent else turns)}"
+            f"{old_txt}; plain {us((p1 + p2) / 2, (p1, p2))}; autograd through grid_sample "
+            f"{library_ms * 1e3:.2f} us, its gradient vs plain {lib_err:.3e} of max (limit "
+            f"{BWD_TOL}); bound {bnd[0] * 1e3:.2f} us ({bnd[1]})")
+        results.append({"max_abs_err": err, "ms": ms, "parent_ms": parent_ms,
+                        "plain_ms": (p1 + p2) / 2, "bound_ms": bnd[0], "bound_by": bnd[1],
+                        "library_ms": library_ms, "at": f"f32, {tag}"})
+        del g, boxes, got, again, want, out, old_out, scratch, old_scratch, lib_grad, lib
+        torch.cuda.empty_cache()
+    # edge shapes: a map wider than one block's columns (the parent refused
+    # W > 192), one row or one column, P = 1 or > 32, lists longer than the
+    # 256 entries a block holds at once
+    for b, h, w, c, k, pool in ((2, 20, 200, 68, 5, 7), (2, 1, 5, 8, 4, 1), (1, 7, 1, 12, 4, 3),
+                                (1, 9, 70, 4, 4, 33), (1, 4, 6, 16, 64, 14)):
+        boxes = torch.tensor(backward_boxes(rng, b, k), device=dev)
+        g = torch.tensor(rng.standard_normal((b, k, pool, pool, c), dtype=np.float32), device=dev)
+        got, want = crop_rois_backward(g, boxes, (h, w)), crop_and_resize_backward(g, boxes, (h, w))
+        ratio = (got - want).abs().max().item() / max(want.abs().max().item(), 1e-30)
+        log(f"[train-kernel] K2 backward f32 B={b}, K={k}, {h}x{w}x{c}, P={pool}: / max|plain| "
+            f"= {ratio:.3e}")
+        if not ratio <= BWD_TOL:
+            raise AssertionError(f"the K2 backward disagrees with its plain version at "
+                                 f"{h}x{w}x{c}, K={k}, P={pool}")
     empty = crop_rois_backward(torch.zeros((2, 0, 14, 14, 8), device=dev),
                                torch.zeros((2, 0, 4), device=dev), (4, 4))
     if empty.shape != (2, 4, 4, 8) or empty.any():
@@ -772,7 +1020,7 @@ def phase_train_kernel(dev, rng):
         log(f"[train-kernel] a bf16 fmap that requires grad raises: {e}")
     else:
         raise AssertionError("a bf16 fmap that requires grad went through the crop")
-    return result
+    return results
 
 
 class PlainCropsOnCuda:
@@ -911,8 +1159,9 @@ def kernel_line(name, source, replaces, launches, err, ms, plain_ms, bnd, **extr
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--parent-csrc", type=Path, default=None,
-                    help="a directory with an earlier commit's fused_ds_block.cu and "
-                         "fused_mask_branch.cu, timed against the current kernels")
+                    help="a directory with any of an earlier commit's crop_rois.cu, "
+                         "fused_ds_block.cu and fused_mask_branch.cu, timed against the "
+                         "current kernels")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this check runs only on a GPU", file=sys.stderr)
@@ -926,23 +1175,24 @@ def main() -> int:
     log(f"[device] {smi}; torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"{torch.cuda.device_count()} device(s); TF32 off for cuDNN and matmul")
 
-    # K1 and K3 (and the parent's, when asked) compile, one nvcc each, in
-    # parallel with the crop kernel's build and phases 2-6
-    int8_kernels = ("fused_ds_block", "fused_mask_branch")
-    pool = ThreadPoolExecutor(max_workers=4)
-    pending = {name: pool.submit(timed_build, name) for name in int8_kernels}
-    if args.parent_csrc:
-        pending.update({f"parent {name}": pool.submit(timed_build, name, args.parent_csrc)
-                        for name in int8_kernels})
-    t0 = time.perf_counter()
-    lib = _build.build("crop_rois")
-    _build.load("crop_rois")
-    log(f"[build] {lib.name} in {time.perf_counter() - t0:.1f} s; nvcc: "
-        + lib.with_suffix(".log").read_text().strip().replace("\n", " | "))
+    # every kernel (and the parent's, when asked) compiles at once, one nvcc
+    # each; K1 and K3 while phases 3-6 run
+    sources = ("crop_rois", "fused_ds_block", "fused_mask_branch")
+    parents = [name for name in sources
+               if args.parent_csrc and (args.parent_csrc / f"{name}.cu").exists()]
+    pool = ThreadPoolExecutor(max_workers=len(sources) + len(parents))
+    pending = {name: pool.submit(timed_build, name) for name in sources}
+    pending.update({f"parent {name}": pool.submit(timed_build, name, args.parent_csrc)
+                    for name in parents})
+    libs = join_builds(pending, ["crop_rois"] + (["parent crop_rois"] if "crop_rois" in parents
+                                                 else []))
+    new_crop = CropLib(libs["crop_rois"], roi_crop._scratch_bytes)
+    old_crop = (CropLib(libs["parent crop_rois"], lambda b, h, w, k, pool: 32 * b * k * pool)
+                if "crop_rois" in parents else None)
 
     rng = np.random.default_rng(SEED)
-    kernel = phase_kernel(dev, rng)
-    kernel_bwd = phase_train_kernel(dev, rng)
+    kernel = phase_kernel(dev, rng, new_crop, old_crop)
+    kernel_bwd = phase_train_kernel(dev, rng, new_crop, old_crop)
 
     images = (rng.random((BATCH, *ShapesConfig.IMAGE_SHAPE)) * 255).astype(np.uint8)
     float_counts = {}
@@ -951,10 +1201,9 @@ def main() -> int:
     phase_serve(model, cfg, rng, float_counts)
     bf16_ms = phase_throughput(model, cfg, dev, rng, smi)
 
-    libs = phase_build_int8(pending)
+    libs = join_builds(pending, list(pending))
     pool.shutdown()
-    parent = (ParentKernels(libs["parent fused_ds_block"], libs["parent fused_mask_branch"])
-              if args.parent_csrc else None)
+    parent = ParentKernels(libs.get("parent fused_ds_block"), libs.get("parent fused_mask_branch"))
     cfg8 = Int8Config()
     model8 = quantized_model(cfg8, dev)
     k1, k3 = phase_kernels_int8(rng, dev, model8, cfg8, parent)
@@ -980,17 +1229,22 @@ def main() -> int:
             ("float_detect", float_counts), ("int8_detect", int8_counts),
             ("train", train_counts))}
 
-    err, ms, plain_ms, bnd = kernel[torch.bfloat16]
     b128 = lambda r: {key: r.get(key) for key in (                          # noqa: E731
         "ms", "plain_ms", "bound_ms", "parent_ms", "gemm_core_ms")}
+
+    def crop_line(name, head, rest):
+        """K2's entry: the headline shape's numbers, the others under
+        "shapes"."""
+        keys = lambda r: {key: v for key, v in r.items() if key not in (   # noqa: E731
+            "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")}
+        return kernel_line(name, "crop_rois.cu", "mask_yolo_tpu/ops/pallas_crop.py:92",
+                           launches(name), head["max_abs_err"], head["ms"], head["plain_ms"],
+                           (head["bound_ms"], head["bound_by"]), **keys(head), shapes=rest)
+
     print(smi)
     print(json.dumps({"kernels": [
-        kernel_line("crop_rois", "crop_rois.cu", "mask_yolo_tpu/ops/pallas_crop.py:92",
-                    launches("crop_rois"), err, ms, plain_ms, bnd,
-                    at="bf16, B=16, 28x28x256, K=10, P=14"),
-        kernel_line("crop_rois_backward", "crop_rois.cu", "mask_yolo_tpu/ops/pallas_crop.py:92",
-                    launches("crop_rois_backward"), *kernel_bwd,
-                    at="f32, B=16, K=32, 28x28x256, P=14"),
+        crop_line("crop_rois", kernel.pop("detect"), kernel),
+        crop_line("crop_rois_backward", kernel_bwd[0], {"coco416": kernel_bwd[1]}),
         kernel_line("fused_ds_block", "fused_ds_block.cu", "mask_yolo_tpu/ops/pallas_ds.py:92",
                     launches("fused_ds_block"), k1["max_abs_err"], k1["ms"], k1["plain_ms"],
                     (k1["bound_ms"], k1["bound_by"]), at="one trunk's 10 calls, B=16",

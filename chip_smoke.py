@@ -2,6 +2,12 @@
 """Run the PyTorch port (`mask_yolo_tpu_torch`) once on one NVIDIA GPU.
 
     python3 chip_smoke.py          # from the repository root; needs CUDA and nvcc
+    python3 chip_smoke.py --shapes-quality
+                                   # instead of the phases: train Shapes at the
+                                   # JAX package's budget (400 images, 40 epochs,
+                                   # flip-only augmentation, AP callback every 5
+                                   # epochs) in f32 and in bf16 and evaluate on
+                                   # 50 held-out images (box and mask AP50)
     python3 chip_smoke.py --parent-csrc DIR
                                    # also build whichever of crop_rois.cu,
                                    # fused_ds_block.cu and fused_mask_branch.cu DIR
@@ -51,8 +57,11 @@ Phases, each fatal on failure (nothing is caught):
                  index kernel's band lists and column ranges, read from the
                  scratch, equal to roi_crop.backward_index's; times
                  beside the parent's and autograd through F.grid_sample
-                 (library_ms, held to the plain version); a bf16 fmap with
-                 grad raises
+                 (library_ms, held to the plain version)
+  R.  repairs    the widths the kernels used to refuse, against their plain
+                 versions: K2 backward at C = 6 and 16 with P = 4 and 65 (f32
+                 and bf16), K3 at Cf = 16 with co = 16 and 256 and at Cf = 200
+                 (pool 4; zero channels are packed up to the kernel's tiles)
  T2. training    MaskYOLO("training", ShapesConfig widths, f32).train on a
                  seeded Shapes dataset (64 train, 16 val images) for 2 epochs:
                  exactly one K2 forward per train and validation step and one
@@ -60,6 +69,24 @@ Phases, each fatal on failure (nothing is caught):
                  resume_from the epoch-1 checkpoint restores exactly; 25 steps
                  on one batch (lr 1e-4) cut the loss below 0.7x; a yolo-mode step; ms per
                  train step at batch 16 and peak memory (recorded)
+
+ T3. bf16 train  the bf16 K2 backward vs its plain version at both T1 shapes
+                 (within one bf16 ULP of the largest value, two runs
+                 bit-identical), timed beside its bound and autograd through
+                 F.grid_sample in bf16; then T2's training run, overfit and step
+                 time with COMPUTE_DTYPE bfloat16 on f32 master weights
+ Y1. infer_yolo  MaskYOLO.infer_yolo and infer_yolo_outputs at 224², batch 128,
+                 bf16 and int8 (exactly 10 K1 launches a batch, no K2, no K3),
+                 and at 416² with CocoStyleConfig's own knobs; the card's f32
+                 result held to the port's CPU run at batch 4; ms per batch
+                 and its split into trunk, decode and NMS, with the NMS's
+                 chain length and launches
+ D1. data        the native image library built and in use; host ms per batch
+                 of BatchGenerator and of data_generator with default_augmenter
+                 at DATA_WORKERS 0 and 4; one epoch of train(augmentation=,
+                 profile_dir=) with DATA_WORKERS 2 leaves a trace
+ E1. evaluate    evaluate_dataset on the model T2 trained, and the AP callback
+                 with every=1 inside D1's train: every metric finite, in [0, 1]
 
 The last three lines are the `nvidia-smi` name/power-limit line, a JSON line
 of kernels (times, launches per path, bounds), and {"ok": true, "device":
@@ -85,6 +112,7 @@ import argparse
 import ctypes
 import itertools
 import json
+import os
 import shutil
 import subprocess
 import sys
@@ -97,11 +125,13 @@ import torch
 import torch.nn.functional as F
 from torch.profiler import ProfilerActivity, profile
 
-from mask_yolo_tpu_torch import CocoStyleConfig, MaskYOLO
-from mask_yolo_tpu_torch.data.pipeline import BatchGenerator, preload_dataset
+from mask_yolo_tpu_torch import (CocoStyleConfig, MaskYOLO, evaluate_dataset,
+                                 make_ap_eval_callback, native, quant)
+from mask_yolo_tpu_torch.data import augment
+from mask_yolo_tpu_torch.data.pipeline import BatchGenerator, data_generator, preload_dataset
 from mask_yolo_tpu_torch.data.prefetch import to_device
 from mask_yolo_tpu_torch.data.shapes import ShapesConfig, ShapesDataset
-from mask_yolo_tpu_torch.ops import _build, roi_crop
+from mask_yolo_tpu_torch.ops import _build, nms, roi_crop
 from mask_yolo_tpu_torch.ops import ds_block
 from mask_yolo_tpu_torch.ops.ds_block import fused_ds_block, fused_ds_block_reference
 from mask_yolo_tpu_torch.ops.mask_fused import (fused_mask_branch,
@@ -111,10 +141,13 @@ from mask_yolo_tpu_torch.ops.mask_fused import (fused_mask_branch,
 from mask_yolo_tpu_torch.ops.roi_align import (crop_and_resize, crop_and_resize_backward,
                                                interp_matrix)
 from mask_yolo_tpu_torch.ops.roi_crop import crop_rois, crop_rois_backward
-from mask_yolo_tpu_torch.pipelines import detect_from_callables, images_f32, training_loss
+from mask_yolo_tpu_torch.pipelines import (detect_from_callables, images_f32,
+                                           infer_yolo_from_callables, infer_yolo_outputs,
+                                           training_loss)
 from mask_yolo_tpu_torch.serve import BatchingExecutor
 from mask_yolo_tpu_torch.train import state as train_state
 from mask_yolo_tpu_torch.train import trainer
+from mask_yolo_tpu_torch.utils.host_ops import BoundBox
 
 SEED = 0
 BATCH = 16
@@ -146,7 +179,16 @@ SLEEP_MAX_S = 0.25                 # cuda_ms's longest head start for the host
 # the K2 backward at the training path's shape and at CocoStyleConfig's
 BWD_SHAPES = [dict(b=16, h=28, w=28, c=256, k=32, pool=14),
               dict(b=4, h=52, w=52, c=256, k=128, pool=14)]
-BWD_TOL = 1e-5                     # max|kernel - plain| / max|plain|, f32
+# max|kernel - plain| / max|plain|: f32 sums in another order; bf16 both round
+# an f32 sum once, so they differ by at most one bf16 ULP of the largest value
+BWD_TOL = {torch.float32: 1e-5, torch.bfloat16: 2.0 ** -7}
+# widths the K2 backward's gather does not take (b, h, w, c, k, pool)
+BWD_TAILS = [(2, 8, 8, 6, 8, 4), (2, 8, 8, 16, 8, 4), (1, 8, 8, 16, 4, 65), (1, 9, 7, 6, 4, 65)]
+# K3 below its tiles (Cf, co, nc, pool): TinyConfig's mask branch, a narrow
+# hand-built one, and a depth that is no multiple of 128
+K3_TAILS = [(16, 256, 3, 4), (16, 16, 4, 4), (200, 256, 4, 14)]
+INFER_CPU_BATCH = 4                # Y1: the card's f32 result against the CPU's
+INFER_TOL = 1e-4                   # boxes (normalized) and scores, f32 card vs CPU
 # 25 single-batch steps must cut the loss below 0.7x, the JAX package's bound
 # (tests/test_train.py). At lr 1e-4: at ShapesConfig widths Adam at 1e-3 makes
 # the exp-parametrized wh loss oscillate between ~4 and ~6e4 on one batch
@@ -174,6 +216,17 @@ class TrainConfig(ShapesConfig):
 class Coco416Config(CocoStyleConfig):
     QUANT_FUSED_DS = True
     QUANT_FUSED_MASK = True
+
+
+class TrainBf16Config(TrainConfig):
+    """TrainConfig computing in bf16 on f32 master weights."""
+    COMPUTE_DTYPE = "bfloat16"
+
+
+class DataConfig(ShapesConfig):
+    """D1/E1: whole epochs from the endless generator on two loader workers."""
+    DATA_WORKERS = 2
+    VALIDATION_STEPS = 1
 
 
 def log(msg):
@@ -308,9 +361,9 @@ class CropLib:
     counts no launches. scratch_bytes(b, h, w, k, pool): the bytes of
     scratch that library's backward takes."""
 
-    def __init__(self, path, scratch_bytes):
-        self.fns = roi_crop.bind(ctypes.CDLL(str(path)), (
-            "crop_rois_f32", "crop_rois_bf16", "crop_rois_backward_f32"))
+    def __init__(self, path, scratch_bytes, symbols=(
+            "crop_rois_f32", "crop_rois_bf16", "crop_rois_backward_f32")):
+        self.fns = roi_crop.bind(ctypes.CDLL(str(path)), symbols)
         self.scratch_bytes = scratch_bytes
 
     def _call(self, symbol, tensors, *dims):
@@ -331,7 +384,7 @@ class CropLib:
 
     def backward(self, g, boxes, scratch, out):
         b, k, pool, _, c = g.shape
-        self._call("crop_rois_backward_f32", (g, boxes, scratch, out), b, out.shape[1],
+        self._call(roi_crop._BWD_SYMBOLS[g.dtype], (g, boxes, scratch, out), b, out.shape[1],
                    out.shape[2], c, k, pool)
 
 
@@ -774,10 +827,27 @@ def check_k3(rng, dev, det, cfg, b, k, tag, time_it=False, parent=None):
     return res
 
 
-def quantized_model(cfg, dev):
-    """The seeded model of `cfg`, quantized on 8 seeded calibration images
-    (as bench.py calibrates)."""
+def spread_scores(model, by=8.0):
+    """Scale the confidence and class rows of the seeded conv_23 by `by`.
+    infer_yolo's score is confidence x class probability: at plain random
+    weights the softmax over C classes stays near 1/C and nothing passes
+    OBJ_THRESHOLD, so the per-class NMS would have no work (detect's score
+    is the confidence alone). Returns the model."""
+    w = model.net.yolo.conv_23.weight
+    rows = torch.arange(w.shape[0], device=w.device) % (5 + model.config.NUM_CLASSES) >= 4
+    with torch.no_grad():
+        w[rows] *= by
+    model._invalidate_infer_fns()
+    model._sync_host_state()
+    return model
+
+
+def quantized_model(cfg, dev, spread=False):
+    """The seeded model of `cfg` (with spread_scores if asked), quantized on
+    8 seeded calibration images (as bench.py calibrates)."""
     model = MaskYOLO("inference", cfg, seed=SEED, device=dev)
+    if spread:
+        spread_scores(model)
     calib = np.random.RandomState(1).rand(8, *cfg.IMAGE_SHAPE).astype(np.float32)
     t0 = time.perf_counter()
     model.quantize(calib)
@@ -937,30 +1007,41 @@ def check_backward_index(tag, scratch, boxes, hw, pool):
         raise AssertionError(f"the K2 backward's index kernel disagrees with backward_index ({tag})")
 
 
-def phase_train_kernel(dev, rng, new, parent=None):
-    """K2 backward at each of BWD_SHAPES: the wrapper vs its plain version
-    and against itself (two runs bit-identical), the index kernel's output
-    vs its plain version, then times through `new`
-    (and `parent`, a CropLib), the plain version's and autograd through
+def check_backward(tag, g, boxes, hw):
+    """K2 backward through its wrapper vs its plain version (on the upcast
+    gradient, rounded once, for bf16) and vs itself; returns (max|d|, plain)."""
+    tol = BWD_TOL[g.dtype]
+    got = crop_rois_backward(g, boxes, hw)
+    again = crop_rois_backward(g, boxes, hw)
+    want = crop_and_resize_backward(g.float(), boxes, hw).to(g.dtype)
+    torch.cuda.synchronize()
+    err = (got.float() - want.float()).abs().max().item()
+    ratio = err / max(want.float().abs().max().item(), 1e-30)
+    same = torch.equal(got, again)
+    ulps = f" ({ratio * 2 ** 7:.2f} bf16 ULP of the largest value)" if g.dtype == torch.bfloat16 else ""
+    log(f"[train-kernel] K2 backward {str(g.dtype)[6:]} {tag}: max|kernel-plain| = {err:.3e}, "
+        f"/ max|plain| = {ratio:.3e}{ulps} (limit {tol:.3e}); two runs "
+        f"{'bit-identical' if same else 'DIFFER'}")
+    if not (got.dtype == g.dtype and torch.isfinite(got.float()).all() and ratio <= tol and same):
+        raise AssertionError(f"the K2 backward disagrees with its plain version or itself ({tag})")
+    return err, want
+
+
+def phase_train_kernel(dev, rng, new, dtype, parent=None):
+    """K2 backward in `dtype` at each of BWD_SHAPES: the wrapper vs its plain
+    version and against itself (two runs bit-identical), the index kernel's
+    output vs its plain version, then times through `new` (and `parent`, a
+    CropLib, f32 only), the plain version's and autograd through
     grid_sample's. Returns a list of dicts of the JSON keys, one a shape."""
     results = []
+    name = str(dtype)[6:]
     for s in BWD_SHAPES:
         boxes = torch.tensor(backward_boxes(rng, s["b"], s["k"]), device=dev)
         g = torch.tensor(rng.standard_normal((s["b"], s["k"], s["pool"], s["pool"], s["c"]),
-                                             dtype=np.float32), device=dev)
+                                             dtype=np.float32), device=dev).to(dtype)
         hw = (s["h"], s["w"])
-        got = crop_rois_backward(g, boxes, hw)
-        again = crop_rois_backward(g, boxes, hw)
-        want = crop_and_resize_backward(g, boxes, hw)
-        torch.cuda.synchronize()
-        err = (got - want).abs().max().item()
-        ratio = err / want.abs().max().item()
-        same = torch.equal(got, again)
         tag = f"B={s['b']}, K={s['k']}, {s['h']}x{s['w']}x{s['c']}, P={s['pool']}"
-        log(f"[train-kernel] K2 backward f32 {tag}: max|kernel-plain| = {err:.3e}, / max|plain| "
-            f"= {ratio:.3e} (limit {BWD_TOL}); two runs {'bit-identical' if same else 'DIFFER'}")
-        if not (torch.isfinite(got).all() and ratio <= BWD_TOL and same):
-            raise AssertionError(f"the K2 backward disagrees with its plain version or itself ({tag})")
+        err, want = check_backward(tag, g, boxes, hw)
         out, old_out = torch.empty_like(want), torch.empty_like(want)
         scratch = new.backward_scratch(g, hw)
         new.backward(g, boxes, scratch, out)
@@ -970,57 +1051,104 @@ def phase_train_kernel(dev, rng, new, parent=None):
             parent.backward(g, boxes, old_scratch, old_out)
             torch.cuda.synchronize()
             log(f"[train-kernel] K2 backward {tag}: max|kernel-parent| = "
-                f"{(old_out - got).abs().max().item():.3e}")
+                f"{(old_out - out).abs().max().item():.3e}")
         ms, parent_ms, turns = time_turns(
             lambda: new.backward(g, boxes, scratch, out),
             parent and (lambda: parent.backward(g, boxes, old_scratch, old_out)), 20)
-        plain = lambda: crop_and_resize_backward(g, boxes, hw)     # noqa: E731
+        plain = lambda: crop_and_resize_backward(g.float(), boxes, hw).to(dtype)   # noqa: E731
         p1 = cuda_ms(plain, 20)
         lib_grad, lib = grid_sample_backward(g.new_zeros((s["b"], *hw, s["c"])), boxes, g)
-        lib_err = (lib_grad - want).abs().max().item() / want.abs().max().item()
+        lib_err = ((lib_grad.float() - want.float()).abs().max().item()
+                   / want.float().abs().max().item())
         library_ms = cuda_ms(lib, 20)
         p2 = cuda_ms(plain, 20)
-        if lib_err > BWD_TOL:
+        # the yardstick adds in bf16 with atomics: time only there
+        if dtype == torch.float32 and lib_err > BWD_TOL[dtype]:
             raise AssertionError(f"autograd through grid_sample disagrees with the plain "
                                  f"backward ({tag})")
         # 9 f32 operations per gradient value, as the forward's per output value
         bnd = bound(nbytes(g, boxes, want), {"f32": 9 * g.numel()})
         old_txt = f", parent {us(parent_ms, turns[::3])}" if parent else ""
-        log(f"[train-kernel] K2 backward {tag}: kernel {us(ms, turns[1:3] if parent else turns)}"
-            f"{old_txt}; plain {us((p1 + p2) / 2, (p1, p2))}; autograd through grid_sample "
-            f"{library_ms * 1e3:.2f} us, its gradient vs plain {lib_err:.3e} of max (limit "
-            f"{BWD_TOL}); bound {bnd[0] * 1e3:.2f} us ({bnd[1]})")
+        log(f"[train-kernel] K2 backward {name} {tag}: kernel "
+            f"{us(ms, turns[1:3] if parent else turns)}{old_txt}; plain "
+            f"{us((p1 + p2) / 2, (p1, p2))}; autograd through grid_sample {library_ms * 1e3:.2f} "
+            f"us, its gradient vs plain {lib_err:.3e} of max"
+            f"{'' if dtype == torch.float32 else ' (bf16 atomics: time only)'}; bound "
+            f"{bnd[0] * 1e3:.2f} us ({bnd[1]})")
         results.append({"max_abs_err": err, "ms": ms, "parent_ms": parent_ms,
                         "plain_ms": (p1 + p2) / 2, "bound_ms": bnd[0], "bound_by": bnd[1],
-                        "library_ms": library_ms, "at": f"f32, {tag}"})
-        del g, boxes, got, again, want, out, old_out, scratch, old_scratch, lib_grad, lib
+                        "library_ms": library_ms, "at": f"{name}, {tag}"})
+        del g, boxes, want, out, old_out, scratch, old_scratch, lib_grad, lib
         torch.cuda.empty_cache()
-    # edge shapes: a map wider than one block's columns (the parent refused
-    # W > 192), one row or one column, P = 1 or > 32, lists longer than the
-    # 256 entries a block holds at once
+    # edge shapes: a map wider than one block's columns, one row or one
+    # column, P = 1 or > 32, lists longer than the 256 entries a block holds
+    # at once
     for b, h, w, c, k, pool in ((2, 20, 200, 68, 5, 7), (2, 1, 5, 8, 4, 1), (1, 7, 1, 12, 4, 3),
                                 (1, 9, 70, 4, 4, 33), (1, 4, 6, 16, 64, 14)):
         boxes = torch.tensor(backward_boxes(rng, b, k), device=dev)
-        g = torch.tensor(rng.standard_normal((b, k, pool, pool, c), dtype=np.float32), device=dev)
-        got, want = crop_rois_backward(g, boxes, (h, w)), crop_and_resize_backward(g, boxes, (h, w))
-        ratio = (got - want).abs().max().item() / max(want.abs().max().item(), 1e-30)
-        log(f"[train-kernel] K2 backward f32 B={b}, K={k}, {h}x{w}x{c}, P={pool}: / max|plain| "
-            f"= {ratio:.3e}")
-        if not ratio <= BWD_TOL:
-            raise AssertionError(f"the K2 backward disagrees with its plain version at "
-                                 f"{h}x{w}x{c}, K={k}, P={pool}")
-    empty = crop_rois_backward(torch.zeros((2, 0, 14, 14, 8), device=dev),
+        g = torch.tensor(rng.standard_normal((b, k, pool, pool, c), dtype=np.float32),
+                         device=dev).to(dtype)
+        check_backward(f"B={b}, K={k}, {h}x{w}x{c}, P={pool}", g, boxes, (h, w))
+    empty = crop_rois_backward(torch.zeros((2, 0, 14, 14, 8), dtype=dtype, device=dev),
                                torch.zeros((2, 0, 4), device=dev), (4, 4))
-    if empty.shape != (2, 4, 4, 8) or empty.any():
+    if empty.shape != (2, 4, 4, 8) or empty.dtype != dtype or empty.any():
         raise AssertionError("the K2 backward of zero ROIs is not a zero map")
-    fmap = torch.zeros((1, 4, 4, 8), dtype=torch.bfloat16, device=dev, requires_grad=True)
-    try:
-        crop_rois(fmap, torch.zeros((1, 2, 4), device=dev), 2)
-    except NotImplementedError as e:
-        log(f"[train-kernel] a bf16 fmap that requires grad raises: {e}")
-    else:
-        raise AssertionError("a bf16 fmap that requires grad went through the crop")
+    # autograd reaches the kernel of the fmap's dtype
+    fmap = torch.zeros((1, 4, 4, 8), dtype=dtype, device=dev, requires_grad=True)
+    launches = crop_rois_backward.launches
+    crop_rois(fmap, torch.tensor([[[0.1, 0.1, 0.9, 0.9]] * 2], device=dev), 2).sum().backward()
+    if crop_rois_backward.launches != launches + 1 or fmap.grad.dtype != dtype \
+            or not fmap.grad.float().sum().item() > 0:
+        raise AssertionError(f"a {name} fmap's gradient did not go through the K2 backward")
     return results
+
+
+def mask_graph(rng, cf, co, nc):
+    """Six random quantized mask layers of the given widths, with scales that
+    spread the activations over the int8 range."""
+    def layer(name, shape, fan_in):
+        return quant.Layer(name, "conv", np.zeros(shape, np.float32),
+                           rng.normal(0, 0.2, shape[-1]).astype(np.float32),
+                           w_q=rng.integers(-127, 128, shape, dtype=np.int8),
+                           w_scale=(rng.uniform(0.5, 1.5, shape[-1]) / (73 * np.sqrt(fan_in))
+                                    ).astype(np.float32), a_scale=1.0 / 40)
+    layers = ([layer("mask_conv1", (3, 3, cf, co), 9 * cf)]
+              + [layer(f"mask_conv{i}", (3, 3, co, co), 9 * co) for i in (2, 3, 4)]
+              + [layer("mask_deconv", (1, 1, co, 4 * co), co),
+                 layer("mask_out", (1, 1, 4 * co, 4 * nc), co)])
+    out = np.zeros((4, co, 4, nc), np.float32)        # block-diagonal: one class conv,
+    out[range(4), :, range(4)] = rng.normal(0, 4.0 / np.sqrt(co), (co, nc))   # at each (di, dj)
+    layers[5].kernel = out.reshape(1, 1, 4 * co, 4 * nc)
+    layers[5].bias = np.tile(rng.normal(0, 0.5, nc).astype(np.float32), 4)
+    return {"mask": layers}
+
+
+def phase_repairs(dev, rng):
+    """The widths the kernels used to refuse, against their plain versions:
+    K2 backward at BWD_TAILS (f32 and bf16), K3 at K3_TAILS."""
+    for dtype in (torch.float32, torch.bfloat16):
+        for b, h, w, c, k, pool in BWD_TAILS:
+            boxes = torch.tensor(backward_boxes(rng, b, k), device=dev)
+            g = torch.tensor(rng.standard_normal((b, k, pool, pool, c), dtype=np.float32),
+                             device=dev).to(dtype)
+            check_backward(f"tail B={b}, K={k}, {h}x{w}x{c}, P={pool}", g, boxes, (h, w))
+    for cf, co, nc, pool in K3_TAILS:
+        w = weights_to(pack_mask_weights(mask_graph(rng, cf, co, nc), nc), dev)
+        b, k, side = 3, 7, 2 * pool
+        fmap = torch.tensor(rng.standard_normal((b, side, side, cf), dtype=np.float32), device=dev)
+        boxes = torch.as_tensor(random_boxes(rng, b, k), device=dev)
+        classes = torch.as_tensor(rng.integers(0, nc, (b, k)), dtype=torch.int32, device=dev)
+        launches = fused_mask_branch.launches
+        got = fused_mask_branch(fmap, boxes, classes, w, pool, nc)
+        want = fused_mask_branch_reference(fmap, boxes, classes, w, pool, nc)
+        torch.cuda.synchronize()
+        what = f"K3 tail Cf={cf} co={co} nc={nc} pool={pool} B={b} K={k}"
+        check_mask_agreement(got, want, what)
+        spread = ((want - 0.5).abs() > 0.05).float().mean().item()
+        log(f"[kernel] {what}: {'identical to' if torch.equal(got, want) else 'within the bounds of'}"
+            f" the plain version; {spread:.3f} of the mask values away from 0.5")
+        if fused_mask_branch.launches != launches + 1 or spread < 0.2:
+            raise AssertionError(f"{what}: the kernel did not launch or the masks do not spread")
 
 
 class PlainCropsOnCuda:
@@ -1062,15 +1190,19 @@ def snapshot(state):
             "count": state.opt_state["count"], "step": state.step}
 
 
-def phase_train(dev, smi, counts, workdir):
-    """MaskYOLO.train on the card, resume, overfit, a yolo-mode step and the
-    step time. Returns the step's ms."""
-    cfg = TrainConfig()
+def phase_train(dev, smi, counts, workdir, cfg):
+    """MaskYOLO.train on the card in cfg's COMPUTE_DTYPE, resume, overfit, a
+    yolo-mode step and the step time. Returns (the trained model, the
+    step's ms, its peak MiB)."""
+    dtype = cfg.COMPUTE_DTYPE
     t0 = time.perf_counter()
     train_ds, val_ds = shapes_dataset(64, SEED, cfg), shapes_dataset(16, SEED + 1, cfg)
     log(f"[train] Shapes dataset, 64 train and 16 val images at {cfg.IMAGE_SHAPE[0]}^2, in "
         f"{time.perf_counter() - t0:.1f} s")
     model = MaskYOLO("training", cfg, model_dir=str(workdir), seed=SEED, device=dev)
+    if {p.dtype for p in model.net.parameters()} != {torch.float32}:
+        raise AssertionError("a training model must hold f32 (master) parameters")
+    trained = model
     epoch1 = {}
     keep = lambda epoch, metrics, val_loss, state: (                         # noqa: E731
         epoch1.update(snapshot(state)) if epoch == 0 else None)
@@ -1084,7 +1216,7 @@ def phase_train(dev, smi, counts, workdir):
     want = (epochs * (cfg.STEPS_PER_EPOCH + cfg.VALIDATION_STEPS), epochs * cfg.STEPS_PER_EPOCH)
     history = [json.loads(line) for line in open(workdir / "history.jsonl")]
     log(f"[train] MaskYOLO.train 2 epochs x {cfg.STEPS_PER_EPOCH} steps + {cfg.VALIDATION_STEPS} "
-        f"val step, batch {cfg.BATCH_SIZE}, f32, in {time.perf_counter() - t0:.1f} s: K2 forward "
+        f"val step, batch {cfg.BATCH_SIZE}, {dtype}, in {time.perf_counter() - t0:.1f} s: K2 forward "
         f"{fwd}, K2 backward {bwd} launches (expected {want[0]}, {want[1]}); plain crops on the "
         f"card {plain.calls}; loss by epoch {[round(h['loss'], 4) for h in history]}, val_loss "
         f"{[round(h['val_loss'], 4) for h in history]}")
@@ -1102,7 +1234,10 @@ def phase_train(dev, smi, counts, workdir):
     same = (epoch == 1 and all(got[k] == epoch1[k] for k in ("count", "step"))
             and all(torch.equal(got[k][n], epoch1[k][n])
                     for k in ("params", "batch_stats", "mu", "nu") for n in epoch1[k]))
-    log(f"[train] resume_from {ckpt.name}: epoch {epoch}, step {got['step']}, params, BN "
+    masters = {v.dtype for v in train_state.load_checkpoint(str(ckpt))["params"].values()}
+    if masters != {torch.float32}:
+        raise AssertionError(f"the checkpoint holds {masters}, not the f32 masters")
+    log(f"[train] resume_from {ckpt.name}: epoch {epoch}, step {got['step']}, f32 params, BN "
         f"statistics and Adam moments {'restore exactly' if same else 'DIFFER'}")
     if not same:
         raise AssertionError("resume did not restore the epoch-1 state exactly")
@@ -1139,13 +1274,313 @@ def phase_train(dev, smi, counts, workdir):
     grads = dict(zip(tx.keys, torch.autograd.grad(loss, [params[k] for k in tx.keys])))
     opt_ms = cuda_ms(lambda: tx.apply(params, grads, state.opt_state), iters=10, warmup=2)
     peak = torch.cuda.max_memory_allocated() / 2**20
-    log(f"[train] train step at batch {cfg.BATCH_SIZE}, {cfg.IMAGE_SHAPE[0]}^2, f32 (TF32 off for "
+    log(f"[train] train step at batch {cfg.BATCH_SIZE}, {cfg.IMAGE_SHAPE[0]}^2, {dtype} (TF32 off for "
         f"cuDNN and matmul): {ms:.3f} ms/step ({cfg.BATCH_SIZE * 1e3 / ms:.1f} img/s); forward "
         f"with autograd graph {fwd_ms:.3f} ms, optimizer {opt_ms:.3f} ms, so backward ~"
         f"{ms - fwd_ms - opt_ms:.3f} ms; peak memory {peak:.0f} MiB on {smi} (recorded, not "
         f"claimed)")
-    return ms
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(2):
+            step(state, batch)
+        torch.cuda.synchronize()
+    events = prof.key_averages()
+    busy = sum(e.device_time_total for e in events) / 2e3
+    top = sorted(events, key=lambda e: -e.device_time_total)[:8]
+    log(f"[train] torch.profiler, 2 {dtype} steps: {busy:.3f} ms of device time a step against "
+        f"{ms:.3f} ms unprofiled, {sum(e.count for e in events) // 2} launches a step; most "
+        f"device time: " + "; ".join(f"{e.key[:56]} {e.device_time_total / 2e3:.3f} ms "
+                                     f"({e.count // 2} a step)" for e in top))
+    return trained, ms, peak
 
+
+
+# ---- phase Y1: infer_yolo ----------------------------------------------------
+
+
+def device_kernels(fn):
+    """(device ms, launches) of one call of fn under torch.profiler: the sum
+    of its device activities' times, and how many there were."""
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    events = [e for e in prof.key_averages() if e.device_time_total > 0]
+    return sum(e.device_time_total for e in events) / 1e3, sum(e.count for e in events)
+
+
+def infer_yolo_split(tag, trunk, images, cfg, smi):
+    """ms per batch of infer_yolo on `trunk`, and its split: the trunk alone,
+    decode (boxes, confidence, the reference's softmax, threshold) and the
+    per-class NMS with the winning class, timed on this batch's own grid.
+    The NMS reads its chain length from the device once, so its time is a
+    wall time. Returns the total ms."""
+    x = images_f32(images)
+    with torch.inference_mode():
+        total = cuda_ms(lambda: infer_yolo_from_callables(trunk, images, cfg), 5, 2)
+        trunk_ms = cuda_ms(lambda: trunk(x), 5, 2)
+        grid = trunk(x)[0]
+        after = cuda_ms(lambda: infer_yolo_from_callables(lambda _: (grid, None), x, cfg), 5, 2)
+        # the NMS alone, on the probabilities this grid gives
+        boxes = infer_yolo_from_callables(lambda _: (grid, None), x, cfg)["boxes"]
+        g = grid.float()
+        probs = torch.sigmoid(g[..., 4])[..., None] * nms.reference_softmax(g[..., 5:],
+                                                                            batch_dims=1)
+        probs = (probs * (probs > cfg.OBJ_THRESHOLD)).reshape(g.shape[0], -1, cfg.NUM_CLASSES)
+        n_top = int(cfg.INFER_YOLO_TOP_N or 0)
+        k_cls = int(cfg.INFER_YOLO_PER_CLASS_K or 0)
+        n = probs.shape[1]
+        if k_cls and k_cls < n:
+            run = lambda: nms.per_class_topk_nms(boxes, probs, k_cls, cfg.NMS_THRESHOLD)   # noqa: E731
+            how = f"per-class top-{k_cls}"
+        elif n_top and n_top < n:
+            idx = torch.sort(probs.amax(-1), dim=-1, descending=True, stable=True)[1][:, :n_top]
+            tb = torch.gather(boxes, 1, idx[..., None].expand(-1, -1, 4))
+            tp = torch.gather(probs, 1, idx[..., None].expand(-1, -1, probs.shape[-1]))
+            run = lambda: nms.class_aware_nms(tb, tp, cfg.NMS_THRESHOLD)                   # noqa: E731
+            how = f"top-{n_top} of {n}"
+        else:
+            run = lambda: nms.class_aware_nms(boxes, probs, cfg.NMS_THRESHOLD)             # noqa: E731
+            how = f"full grid of {n}"
+        nms_ms = cuda_ms(run, 5, 2)
+        nms_dev_ms, nms_launches = device_kernels(run)
+        live = (probs > 0).sum(1)
+    b = images.shape[0]
+    log(f"[infer_yolo] {tag} B={b}: {total:.3f} ms/batch ({b * 1e3 / total:.1f} img/s); trunk "
+        f"{trunk_ms:.3f} ms, decode ~{after - nms_ms:.3f} ms, NMS {nms_ms:.3f} ms ({how}, "
+        f"{cfg.NUM_CLASSES} classes: a chain of {nms.greedy_keep.steps} steps, {nms_launches} "
+        f"launches, {nms_dev_ms:.3f} ms of device time); boxes over OBJ_THRESHOLD a class and "
+        f"image: max {int(live.max())}, mean {live.float().mean().item():.2f} on {smi} "
+        f"(recorded, not claimed)")
+    return total
+
+
+def check_infer_outputs(out, b, cfg):
+    n = cfg.GRID_H * cfg.GRID_W * cfg.N_BOX
+    expect = {"boxes": ((b, n, 4), torch.float32), "scores": ((b, n), torch.float32),
+              "classes": ((b, n), torch.int32), "valid": ((b, n), torch.bool)}
+    for key, (shape, dt) in expect.items():
+        if tuple(out[key].shape) != shape or out[key].dtype != dt:
+            raise AssertionError(f"infer_yolo {key}: {tuple(out[key].shape)} {out[key].dtype}, "
+                                 f"expected {shape} {dt}")
+    if not (torch.isfinite(out["boxes"]).all() and torch.isfinite(out["scores"]).all()):
+        raise AssertionError("non-finite infer_yolo boxes or scores")
+    if (out["valid"] != (out["scores"] > cfg.OBJ_THRESHOLD)).any():
+        raise AssertionError("infer_yolo valid is not scores > OBJ_THRESHOLD")
+
+
+def phase_infer_yolo(dev, rng, smi, cfg, cfg8, counts):
+    """Y1: infer_yolo through MaskYOLO and the pipelines, float and int8, at
+    224² (batch 128) and at 416² (CocoStyleConfig's knobs, batch 16), on
+    seeded models whose scores are spread (spread_scores)."""
+    model = spread_scores(MaskYOLO("inference", cfg, seed=SEED, device=dev))
+    model8 = quantized_model(cfg8, dev, spread=True)
+    images = torch.as_tensor((rng.random((THROUGHPUT_BATCH, *cfg.IMAGE_SHAPE)) * 255)
+                             .astype(np.uint8), device=dev)
+    one = images[0].cpu().numpy()
+
+    # the float path: MaskYOLO.infer_yolo on one image, the pipeline on the batch
+    boxes = run_main_path(lambda: model.infer_yolo(one), counts, expect=())
+    out = model._infer_yolo_batch(images)
+    check_infer_outputs(out, THROUGHPUT_BATCH, cfg)
+    if not all(isinstance(b, BoundBox) for b in boxes) or not out["valid"].any() \
+            or len(boxes) != int(out["valid"][0].sum()):
+        raise AssertionError("MaskYOLO.infer_yolo does not return the valid boxes as BoundBoxes")
+    with torch.inference_mode():
+        direct = infer_yolo_outputs(model.net, images, cfg)
+    if not all(torch.equal(out[k], direct[k]) for k in out):
+        raise AssertionError("MaskYOLO's infer_yolo differs from pipelines.infer_yolo_outputs")
+    log(f"[infer_yolo] {cfg.COMPUTE_DTYPE} 224^2 B={THROUGHPUT_BATCH}: {int(out['valid'].sum())} "
+        f"valid boxes of {out['valid'].numel()}, {len(boxes)} BoundBoxes for image 0; launches "
+        f"K1 {counts['fused_ds_block'][-1]}, K2 {counts['crop_rois'][-1]}, K3 "
+        f"{counts['fused_mask_branch'][-1]}")
+
+    # the int8 path: exactly 10 K1 launches a batch, no K2, no K3
+    out8 = run_main_path(lambda: model8._infer_yolo_batch(images), counts, ("fused_ds_block",))
+    check_infer_outputs(out8, THROUGHPUT_BATCH, cfg8)
+    n1, n2, n3 = (counts[k][-1] for k in ("fused_ds_block", "crop_rois", "fused_mask_branch"))
+    boxes8 = model8.infer_yolo(one)
+    chained = model8._qdet.infer_yolo_outputs(images, fused_ds=False)
+    same = {k: torch.equal(out8[k], chained[k]) for k in ("classes", "valid")}
+    close = (out8["boxes"] - chained["boxes"]).abs().max().item()
+    log(f"[infer_yolo] int8 224^2 B={THROUGHPUT_BATCH}: {int(out8['valid'].sum())} valid boxes, "
+        f"{len(boxes8)} BoundBoxes for image 0; launches K1 {n1}, K2 {n2}, K3 {n3} (expected "
+        f"{K1_LAUNCHES}, 0, 0); against the chained int8 layers: classes and valid "
+        f"{'identical' if all(same.values()) else 'DIFFER'}, max|d boxes| {close:.3e}")
+    if (n1, n2, n3) != (K1_LAUNCHES, 0, 0) or not all(same.values()) or close > 0 \
+            or len(boxes8) != int(out8["valid"][0].sum()):
+        raise AssertionError("the int8 infer_yolo path did not run as expected")
+
+    # the card's f32 result against the port's own CPU run
+    cfg32 = type("InferF32Config", (ShapesConfig,), {"COMPUTE_DTYPE": "float32"})()
+    small = images[:INFER_CPU_BATCH]
+    on_card, on_cpu = (
+        spread_scores(MaskYOLO("inference", cfg32, seed=SEED, device=d))._infer_yolo_batch(
+            small.to(d)) for d in (dev, "cpu"))
+    d_boxes = (on_card["boxes"].cpu() - on_cpu["boxes"]).abs().max().item()
+    d_scores = (on_card["scores"].cpu() - on_cpu["scores"]).abs().max().item()
+    same = all(torch.equal(on_card[k].cpu(), on_cpu[k]) for k in ("classes", "valid"))
+    log(f"[infer_yolo] f32 224^2 B={INFER_CPU_BATCH}, the card against the CPU: max|d boxes| "
+        f"{d_boxes:.3e}, max|d scores| {d_scores:.3e} (limit {INFER_TOL}), classes and valid "
+        f"{'identical' if same else 'DIFFER'}; {int(on_cpu['valid'].sum())} valid boxes")
+    if not (same and d_boxes <= INFER_TOL and d_scores <= INFER_TOL and on_cpu["valid"].any()):
+        raise AssertionError("infer_yolo on the card disagrees with the CPU run")
+
+    infer_yolo_split(f"{cfg.COMPUTE_DTYPE} 224^2", model.net.trunk, images, cfg, smi)
+    infer_yolo_split("int8 224^2", lambda x: model8._qdet.trunk(x), images, cfg8, smi)
+    del images, out, out8, chained, direct, model, model8
+    torch.cuda.empty_cache()
+
+    # 416^2, 81 classes, CocoStyleConfig's own knobs, float and int8
+    cfg416 = Coco416Config()
+    model416 = quantized_model(cfg416, dev, spread=True)
+    images = torch.as_tensor((rng.random((BATCH, *cfg416.IMAGE_SHAPE)) * 255).astype(np.uint8),
+                             device=dev)
+    float416 = spread_scores(MaskYOLO("inference", cfg416, seed=SEED, device=dev))
+    for tag, m in ((cfg416.COMPUTE_DTYPE, float416), ("int8", model416)):
+        out = run_main_path(lambda m=m: m._infer_yolo_batch(images), counts,
+                            ("fused_ds_block",) if m is model416 else ())
+        check_infer_outputs(out, BATCH, cfg416)
+        if not out["valid"].any():
+            raise AssertionError("no box passed OBJ_THRESHOLD at 416^2: the NMS had no work")
+        log(f"[infer_yolo] {tag} 416^2 B={BATCH}, INFER_YOLO_TOP_N {cfg416.INFER_YOLO_TOP_N}, "
+            f"PER_CLASS_K {cfg416.INFER_YOLO_PER_CLASS_K}: {int(out['valid'].sum())} valid boxes "
+            f"of {out['valid'].numel()}; launches K1 {counts['fused_ds_block'][-1]}, K2 "
+            f"{counts['crop_rois'][-1]}, K3 {counts['fused_mask_branch'][-1]}")
+        if counts["crop_rois"][-1] or counts["fused_mask_branch"][-1]:
+            raise AssertionError("infer_yolo launched a mask-branch kernel")
+    infer_yolo_split(f"{cfg416.COMPUTE_DTYPE} 416^2", float416.net.trunk, images, cfg416, smi)
+    infer_yolo_split("int8 416^2", lambda x: model416._qdet.trunk(x), images, cfg416, smi)
+
+
+# ---- phases D1 and E1: the data path and evaluation ---------------------------
+
+
+def host_ms(make_batch, count):
+    """Mean host milliseconds of `count` calls of make_batch() (after one)."""
+    make_batch()
+    t0 = time.perf_counter()
+    for _ in range(count):
+        make_batch()
+    return (time.perf_counter() - t0) * 1e3 / count
+
+
+def check_metrics(what, result):
+    """Every AP and recall of an evaluate_dataset result finite and in [0, 1]."""
+    keys = [k for k in result if k not in ("per_image", "n_images", "epoch")]
+    bad = [k for k in keys if not (np.isfinite(result[k]) and 0.0 <= result[k] <= 1.0)]
+    log(f"[evaluate] {what}: " + ", ".join(f"{k} {result[k]:.4f}" for k in keys)
+        + f" over {result['n_images']} images (random or barely trained weights: not a "
+          f"quality claim)")
+    if bad or len(keys) < 8:
+        raise AssertionError(f"{what}: metrics out of range or missing: {bad}")
+
+
+def phase_data_and_evaluate(dev, smi, trained, counts, workdir):
+    """D1: the native image library, host ms per batch of the two batch
+    sources, and an epoch of train(augmentation=, profile_dir=) on loader
+    workers that leaves a trace. E1: evaluate_dataset on the model T2 trained
+    and the AP callback inside D1's train."""
+    if not native.available():
+        raise AssertionError("the native image library did not build on this machine")
+    log(f"[data] native image ops built and in use: "
+        f"{[p.name for p in native.BUILD_DIR.glob('image_ops_*.so')]}")
+    cfg = DataConfig()
+    t0 = time.perf_counter()
+    train_ds, val_ds = shapes_dataset(96, SEED + 2, cfg), shapes_dataset(16, SEED + 3, cfg)
+    data = preload_dataset(train_ds, cfg)
+    preload_s = time.perf_counter() - t0
+    gen = BatchGenerator(data, cfg, shuffle=True, seed=SEED)
+    it = itertools.cycle(range(len(gen)))
+    ms = {"BatchGenerator": host_ms(lambda: gen[next(it)], 24)}
+    for workers in (0, 4):
+        for mode in (("thread", "process") if workers else ("inline",)):
+            wcfg = type("WorkersConfig", (DataConfig,),
+                        {"DATA_WORKERS": workers, "DATA_WORKER_MODE": mode if workers else "thread"})()
+            source = data_generator(train_ds, wcfg, augmentation=augment.default_augmenter(SEED),
+                                    seed=SEED)
+            try:
+                ms[f"data_generator, {workers} workers ({mode})"] = host_ms(lambda: next(source), 12)
+            finally:
+                source.close()
+    log(f"[data] host ms per batch of {cfg.BATCH_SIZE} at {cfg.IMAGE_SHAPE[0]}^2 (preload of 96 "
+        f"images {preload_s:.2f} s; {len(os.sched_getaffinity(0))} CPU cores): "
+        + "; ".join(f"{k} {v:.2f} ms" for k, v in ms.items())
+        + " (default_augmenter; the generator re-reads and re-augments every image)")
+
+    # E1 on the model T2 trained: its weights into an inference model on the card
+    infer = MaskYOLO("inference", trained.config, seed=SEED, device=dev)
+    infer._load_live_state(dict(trained.net.named_parameters()),
+                           {k: v for k, v in trained.net.named_buffers() if "running" in k})
+    run_main_path(lambda: check_metrics(
+        "evaluate_dataset on T2's model, score_threshold 0.05",
+        evaluate_dataset(infer, val_ds, trained.config, batch_size=8, score_threshold=0.05)),
+        counts)
+
+    # D1's train: augmentation, two loader workers, a trace, the AP callback
+    trace_dir = workdir / "trace"
+    cb = make_ap_eval_callback(val_ds, cfg, every=1, batch_size=8, score_threshold=0.05,
+                               history_path=str(workdir / "ap.jsonl"),
+                               best_weights_path=str(workdir / "best.pt"), verbose=False)
+    model = MaskYOLO("training", cfg, model_dir=str(workdir / "ckpt"), seed=SEED, device=dev)
+    t0 = time.perf_counter()
+    with PlainCropsOnCuda() as plain:
+        state = run_main_path(lambda: model.train(
+            train_ds, val_ds, 1e-3, epochs=1, verbose=False,
+            augmentation=augment.default_augmenter(SEED), profile_dir=str(trace_dir),
+            custom_callbacks=[cb]), counts, ("crop_rois", "crop_rois_backward"))
+    steps = len(train_ds.image_ids) // cfg.BATCH_SIZE
+    traces = sorted(trace_dir.glob("*.trace.json"))
+    log(f"[data] train(augmentation=default_augmenter, profile_dir=) with DATA_WORKERS "
+        f"{cfg.DATA_WORKERS}: 1 epoch of {state.step} steps in {time.perf_counter() - t0:.1f} s; "
+        f"K2 forward {counts['crop_rois'][-1]}, backward {counts['crop_rois_backward'][-1]} "
+        f"launches; plain crops on the card {plain.calls}; trace "
+        f"{[f'{t.name} ({t.stat().st_size / 2**20:.1f} MiB)' for t in traces]}")
+    if state.step != steps or counts["crop_rois_backward"][-1] != steps or plain.calls \
+            or len(traces) != 1 or '"cat": "kernel"' not in traces[0].read_text():
+        raise AssertionError("D1's train did not run as expected or left no device trace")
+    if len(cb.history) != 1 or not (workdir / "best.pt").exists():
+        raise AssertionError("the AP callback did not evaluate or keep its best weights")
+    check_metrics("make_ap_eval_callback(every=1) after D1's epoch", cb.history[0])
+
+
+# ---- --shapes-quality: the port's quality number ------------------------------
+
+
+def shapes_quality(dev, smi, workdir):
+    """Train Shapes at the JAX package's budget (tools/quality_run.py there:
+    400 train / 50 val / 50 held-out images, 40 epochs, batch 16, lr 1e-3,
+    flip-only augmentation, the AP callback every 5 epochs, score threshold
+    0.35) in f32 and in bf16, then evaluate_dataset on the held-out images.
+    Prints one JSON line a dtype."""
+    for dtype in ("float32", "bfloat16"):
+        cfg = type("QualityConfig", (ShapesConfig,), {"COMPUTE_DTYPE": dtype})()
+        out = workdir / dtype
+        out.mkdir(parents=True)
+        train_ds, val_ds, eval_ds = (shapes_dataset(n, SEED + i, cfg)
+                                     for i, n in enumerate((400, 50, 50)))
+        cb = make_ap_eval_callback(eval_ds, cfg, every=5, batch_size=8, score_threshold=0.35,
+                                   history_path=str(out / "ap_history.jsonl"),
+                                   best_weights_path=str(out / "best.pt"))
+        model = MaskYOLO("training", cfg, model_dir=str(out / "ckpt"), seed=SEED, device=dev)
+        t0 = time.perf_counter()
+        model.train(train_ds, val_ds, 1e-3, epochs=40, verbose=False,
+                    augmentation=augment.Sequential([augment.Fliplr(0.5)], seed=SEED + 7),
+                    custom_callbacks=[cb])
+        torch.cuda.synchronize()
+        train_s = time.perf_counter() - t0
+        model.save_weights(str(out / "weights.pt"))
+        infer = MaskYOLO("inference", cfg, seed=SEED, device=dev)
+        infer.load_weights(str(out / "weights.pt"))
+        t0 = time.perf_counter()
+        result = evaluate_dataset(infer, eval_ds, cfg, batch_size=8, score_threshold=0.35)
+        result.pop("per_image")
+        result.update(compute_dtype=dtype, train_seconds=round(train_s, 1),
+                      eval_seconds=round(time.perf_counter() - t0, 1), epochs=40,
+                      train_images=400, best_callback_box_ap50=cb.best, device=smi,
+                      ap_trajectory=[{k: e[k] for k in ("epoch", "box_ap50", "mask_ap50")}
+                                     for e in cb.history])
+        print(json.dumps({"shapes_quality": result}), flush=True)
 
 
 def kernel_line(name, source, replaces, launches, err, ms, plain_ms, bnd, **extra):
@@ -1162,6 +1597,9 @@ def main() -> int:
                     help="a directory with any of an earlier commit's crop_rois.cu, "
                          "fused_ds_block.cu and fused_mask_branch.cu, timed against the "
                          "current kernels")
+    ap.add_argument("--shapes-quality", action="store_true",
+                    help="instead of the phases: train Shapes for 40 epochs on 400 images "
+                         "in f32 and in bf16 and print held-out box and mask AP")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this check runs only on a GPU", file=sys.stderr)
@@ -1174,6 +1612,15 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     log(f"[device] {smi}; torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"{torch.cuda.device_count()} device(s); TF32 off for cuDNN and matmul")
+    workdir = Path(__file__).resolve().parent / "build" / "chip_smoke_train"
+    shutil.rmtree(workdir, ignore_errors=True)
+    if args.shapes_quality:
+        try:
+            shapes_quality(dev, smi, workdir)
+        finally:
+            shutil.rmtree(workdir, ignore_errors=True)
+        print(smi)
+        return 0
 
     # every kernel (and the parent's, when asked) compiles at once, one nvcc
     # each; K1 and K3 while phases 3-6 run
@@ -1186,13 +1633,16 @@ def main() -> int:
                     for name in parents})
     libs = join_builds(pending, ["crop_rois"] + (["parent crop_rois"] if "crop_rois" in parents
                                                  else []))
-    new_crop = CropLib(libs["crop_rois"], roi_crop._scratch_bytes)
+    new_crop = CropLib(libs["crop_rois"], roi_crop._scratch_bytes, tuple(
+        name for name in roi_crop.ENTRY_POINTS if name.startswith("crop_rois_") and
+        not name.endswith("scratch_bytes")))
     old_crop = (CropLib(libs["parent crop_rois"], lambda b, h, w, k, pool: 32 * b * k * pool)
                 if "crop_rois" in parents else None)
 
     rng = np.random.default_rng(SEED)
     kernel = phase_kernel(dev, rng, new_crop, old_crop)
-    kernel_bwd = phase_train_kernel(dev, rng, new_crop, old_crop)
+    kernel_bwd = phase_train_kernel(dev, rng, new_crop, torch.float32, old_crop)
+    kernel_bwd16 = phase_train_kernel(dev, rng, new_crop, torch.bfloat16)
 
     images = (rng.random((BATCH, *ShapesConfig.IMAGE_SHAPE)) * 255).astype(np.uint8)
     float_counts = {}
@@ -1207,44 +1657,60 @@ def main() -> int:
     cfg8 = Int8Config()
     model8 = quantized_model(cfg8, dev)
     k1, k3 = phase_kernels_int8(rng, dev, model8, cfg8, parent)
+    phase_repairs(dev, rng)
     int8_counts = {}
     phase_int8_slice(model8, model, cfg8, images, int8_counts)
     phase_serve(model8, cfg8, rng, int8_counts, n=16,
                 expect=("fused_ds_block", "fused_mask_branch"), tag="serve int8")
     phase_int8_throughput(model8, cfg8, dev, rng, smi, bf16_ms, k1["b128"]["ms"],
                           k3["b128"]["ms"])
+    infer_counts = {}
     del model8
     torch.cuda.empty_cache()
+    phase_infer_yolo(dev, rng, smi, cfg, cfg8, infer_counts)
 
-    workdir = Path(__file__).resolve().parent / "build" / "chip_smoke_train"
-    shutil.rmtree(workdir, ignore_errors=True)
-    train_counts = {}
+    train_counts, train16_counts, data_counts = {}, {}, {}
     try:
-        phase_train(dev, smi, train_counts, workdir)
+        trained, ms32, peak32 = phase_train(dev, smi, train_counts, workdir, TrainConfig())
+        shutil.rmtree(workdir)
+        _, ms16, peak16 = phase_train(dev, smi, train16_counts, workdir, TrainBf16Config())
+        log(f"[train] the step in bf16 on f32 masters {ms16:.3f} ms and {peak16:.0f} MiB at its "
+            f"peak, in f32 {ms32:.3f} ms and {peak32:.0f} MiB, on {smi} (recorded, not claimed)")
+        shutil.rmtree(workdir)
+        workdir.mkdir(parents=True)
+        phase_data_and_evaluate(dev, smi, trained, data_counts, workdir)
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
 
     def launches(name):
         return {path: sum(counts.get(name, [])) for path, counts in (
             ("float_detect", float_counts), ("int8_detect", int8_counts),
-            ("train", train_counts))}
+            ("infer_yolo", infer_counts), ("train", train_counts),
+            ("train_bf16", train16_counts), ("data_evaluate", data_counts))}
 
     b128 = lambda r: {key: r.get(key) for key in (                          # noqa: E731
         "ms", "plain_ms", "bound_ms", "parent_ms", "gemm_core_ms")}
 
-    def crop_line(name, head, rest):
+    def crop_line(name, head, rest, counted=None, paths=None):
         """K2's entry: the headline shape's numbers, the others under
-        "shapes"."""
+        "shapes". counted: the wrapper whose launches the entry reports, on
+        `paths` (default: all)."""
         keys = lambda r: {key: v for key, v in r.items() if key not in (   # noqa: E731
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")}
+        by_path = {path: n for path, n in launches(counted or name).items()
+                   if paths is None or path in paths}
         return kernel_line(name, "crop_rois.cu", "mask_yolo_tpu/ops/pallas_crop.py:92",
-                           launches(name), head["max_abs_err"], head["ms"], head["plain_ms"],
+                           by_path, head["max_abs_err"], head["ms"], head["plain_ms"],
                            (head["bound_ms"], head["bound_by"]), **keys(head), shapes=rest)
 
     print(smi)
     print(json.dumps({"kernels": [
         crop_line("crop_rois", kernel.pop("detect"), kernel),
-        crop_line("crop_rois_backward", kernel_bwd[0], {"coco416": kernel_bwd[1]}),
+        crop_line("crop_rois_backward", kernel_bwd[0], {"coco416": kernel_bwd[1]},
+                  paths=("train", "data_evaluate")),
+        # the bf16 gradient's kernel: the same wrapper, counted on the bf16 run
+        crop_line("crop_rois_backward_bf16", kernel_bwd16[0], {"coco416": kernel_bwd16[1]},
+                  counted="crop_rois_backward", paths=("train_bf16",)),
         kernel_line("fused_ds_block", "fused_ds_block.cu", "mask_yolo_tpu/ops/pallas_ds.py:92",
                     launches("fused_ds_block"), k1["max_abs_err"], k1["ms"], k1["plain_ms"],
                     (k1["bound_ms"], k1["bound_by"]), at="one trunk's 10 calls, B=16",

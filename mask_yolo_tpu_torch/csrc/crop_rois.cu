@@ -42,16 +42,22 @@
 // equal sample ranges; a separable form that interpolates each row of the
 // ROI's columns into shared memory first.)
 //
-// Backward (crop_rois_backward_f32): the gradient with respect to the fmap,
-// which the TPU package left to XLA's autodiff of the separable crop. Output
-// sample (b, k, py, px) adds wy*wx*g[b, k, py, px, :] into its four taps of
-// d_fmap; the boxes get no gradient. Twin: crop_and_resize_backward.
+// Backward (crop_rois_backward_f32, crop_rois_backward_bf16): the gradient
+// with respect to the fmap, which the TPU package left to XLA's autodiff of
+// the separable crop. Output sample (b, k, py, px) adds
+// wy*wx*g[b, k, py, px, :] into its four taps of d_fmap; the boxes get no
+// gradient. Twin: crop_and_resize_backward (on the upcast gradient, rounded
+// once at the end, for bf16).
 //
-//   g      [B, K, P, P, C]  float32, C % 4 == 0
-//   d_fmap [B, H, W, C]     float32, fully written (no zeroing needed)
+//   g      [B, K, P, P, C]  float32 or bfloat16
+//   d_fmap [B, H, W, C]     in g's dtype, fully written (no zeroing needed)
+//
+// The gather is templated on the element type: a bf16 gradient (bf16
+// training) moves half the bytes, through 8-byte copies, and every sum
+// stays in f32 registers until the one rounding at the store.
 //
 // Bound: memory. At the training shape (B=16, K=32, P=14, C=256) g is
-// 102.8 MB and d_fmap 12.8 MB: 34.5 us. Design: a gather, not an atomic
+// 102.8 MB and d_fmap 12.8 MB in f32: 34.5 us (half of that in bf16). Design: a gather, not an atomic
 // scatter, so two runs give the same bits, as XLA's gradient does.
 //  1. crop_index_kernel, one block per (image, band of kBandRows fmap rows):
 //     the list of the sample rows i = k*P + py whose y taps touch the band
@@ -82,7 +88,11 @@
 //     long lists over several blocks whose partial sums a last pass adds in
 //     order.)
 //  Any map width works: wider than one chunk, the columns are split across
-//  blocks. P is limited by the ring's shared memory (P <= 64 here).
+//  blocks. The ring's shared memory limits P (P <= 64) and the 4-channel
+//  slots need C % 4 == 0; other shapes (a narrow test config's C = 6, a
+//  P = 65) take crop_rois_backward_any_kernel, one thread per d_fmap value
+//  that walks every sample of its image: slow, simple, the same sums in a
+//  fixed order, and not a shape any shipped config trains at.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -169,6 +179,42 @@ __device__ __forceinline__ TapRec tap_rec(const Taps& t) {
 __device__ __forceinline__ void cp_async16(void* dst, const void* src) {
   const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d), "l"(src) : "memory");
+}
+
+// 4 channels of T: 16 bytes of f32 (.cg, past L1) or 8 bytes of bf16 (.ca:
+// .cg copies 16 bytes only)
+template <typename T>
+__device__ __forceinline__ void cp_async_quad(void* dst, const T* src);
+template <>
+__device__ __forceinline__ void cp_async_quad<float>(void* dst, const float* src) {
+  cp_async16(dst, src);
+}
+template <>
+__device__ __forceinline__ void cp_async_quad<__nv_bfloat16>(void* dst, const __nv_bfloat16* src) {
+  const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(d), "l"(src) : "memory");
+}
+
+// 4 channels of T at an address aligned to 4 * sizeof(T), as f32 and back
+__device__ __forceinline__ float4 load_quad(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+__device__ __forceinline__ float4 load_quad(const __nv_bfloat16* p) {
+  const uint2 raw = *reinterpret_cast<const uint2*>(p);
+  const float2 lo = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&raw.x));
+  const float2 hi = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&raw.y));
+  return make_float4(lo.x, lo.y, hi.x, hi.y);
+}
+__device__ __forceinline__ void store_quad(float* p, float4 v) {
+  *reinterpret_cast<float4*>(p) = v;
+}
+__device__ __forceinline__ void store_quad(__nv_bfloat16* p, float4 v) {
+  const __nv_bfloat162 lo = __floats2bfloat162_rn(v.x, v.y);
+  const __nv_bfloat162 hi = __floats2bfloat162_rn(v.z, v.w);
+  uint2 raw;
+  raw.x = *reinterpret_cast<const uint32_t*>(&lo);
+  raw.y = *reinterpret_cast<const uint32_t*>(&hi);
+  *reinterpret_cast<uint2*>(p) = raw;
 }
 
 __device__ __forceinline__ void cp_async_commit() {
@@ -424,11 +470,11 @@ __global__ void __launch_bounds__(kIndexThreads)
 // Block (b, band) = blockIdx.x, channels [CH * blockIdx.y, +CH), CH =
 // bwd_channels(XC), columns [XC * blockIdx.z, +XC). NSLOT >= P * CH / 4 /
 // kBwdThreads.
-template <int XC, int NSLOT>
+template <typename T, int XC, int NSLOT>
 __global__ void __launch_bounds__(kBwdThreads, XC == 32 ? 2 : 3)
-    crop_rois_backward_kernel(const float* __restrict__ g, const RowEntry* __restrict__ lists,
+    crop_rois_backward_kernel(const T* __restrict__ g, const RowEntry* __restrict__ lists,
                               const int* __restrict__ counts, const TapRec* __restrict__ xtaps,
-                              const int* __restrict__ xrange, float* __restrict__ dfmap, int H,
+                              const int* __restrict__ xrange, T* __restrict__ dfmap, int H,
                               int W, int C, int K, int P, int nbands) {
   constexpr int kBwdChannels = bwd_channels(XC);
   constexpr int kBwdQuads = kBwdChannels / 4;  // threads along the channels
@@ -438,8 +484,8 @@ __global__ void __launch_bounds__(kBwdThreads, XC == 32 ? 2 : 3)
   RowEntry* ents = reinterpret_cast<RowEntry*>(bwd_smem);  // [kListChunk]
   float4* hs = reinterpret_cast<float4*>(ents + kListChunk);  // [kBandRows][P][kBwdQuads]
   char* ring = reinterpret_cast<char*>(hs + kBandRows * P * kBwdQuads);
-  // a stage: g slice [P][kBwdChannels] f32, x taps [P], column ranges [XC]
-  const int g_bytes = P * kBwdChannels * 4;
+  // a stage: g slice [P][kBwdChannels] of T, x taps [P], column ranges [XC]
+  const int g_bytes = P * kBwdChannels * static_cast<int>(sizeof(T));
   const int stage_bytes = g_bytes + P * static_cast<int>(sizeof(TapRec)) + XC * 4;
   const int b = blockIdx.x / nbands;
   const int y_lo = (blockIdx.x % nbands) * kBandRows;
@@ -452,7 +498,7 @@ __global__ void __launch_bounds__(kBwdThreads, XC == 32 ? 2 : 3)
   const bool c_ok = c0 + 4 * quad < C;
   const int n = counts[blockIdx.x];
   const RowEntry* list = lists + static_cast<size_t>(blockIdx.x) * K * P;
-  const float* gimg = g + static_cast<size_t>(b) * K * P * P * C + c0;
+  const T* gimg = g + static_cast<size_t>(b) * K * P * P * C + c0;
 
   // acc: the block's d_fmap cells (row r, column cg + kColGroups * j, channels
   // 4 quad..4 quad + 3); h: the y-weighted sums over the current run of rows
@@ -471,11 +517,12 @@ __global__ void __launch_bounds__(kBwdThreads, XC == 32 ? 2 : 3)
     const int i = ents[e].i;
     const size_t roi = static_cast<size_t>(b) * K + (ents[e].k & ~kRunEnd);
     char* st = ring + s * stage_bytes;
-    const float* grow = gimg + static_cast<size_t>(i) * P * C;
+    const T* grow = gimg + static_cast<size_t>(i) * P * C;
     for (int q = threadIdx.x; q < P * kBwdQuads; q += kBwdThreads) {
       const int px = q / kBwdQuads, l = q % kBwdQuads;
       if (c0 + 4 * l < C)
-        cp_async16(st + (px * kBwdChannels + 4 * l) * 4, grow + static_cast<size_t>(px) * C + 4 * l);
+        cp_async_quad<T>(st + (px * kBwdChannels + 4 * l) * sizeof(T),
+                         grow + static_cast<size_t>(px) * C + 4 * l);
     }
     // taps and ranges from the top thread down, beside the g copies
     const int t = kBwdThreads - 1 - threadIdx.x;
@@ -503,14 +550,14 @@ __global__ void __launch_bounds__(kBwdThreads, XC == 32 ? 2 : 3)
       cp_async_commit();
 
       const char* st = ring + (e % kBwdStages) * stage_bytes;
-      const float4* gs = reinterpret_cast<const float4*>(st);
+      const T* gs = reinterpret_cast<const T*>(st);  // slot q at gs + 4 q
       const RowEntry en = ents[e];
       // y: the row's g slice into the slots' sums
 #pragma unroll
       for (int j = 0; j < NSLOT; ++j) {
         const int q = threadIdx.x + j * kBwdThreads;
         if (q < P * kBwdQuads && c0 + 4 * (q % kBwdQuads) < C) {
-          const float4 v = gs[q];
+          const float4 v = load_quad(gs + 4 * q);
 #pragma unroll
           for (int r = 0; r < kBandRows; ++r) {
             h[j][r].x += en.wy[r] * v.x;
@@ -572,62 +619,99 @@ __global__ void __launch_bounds__(kBwdThreads, XC == 32 ? 2 : 3)
     for (int j = 0; j < NXW; ++j) {
       const int x = x_lo + cg + kColGroups * j;
       if (x < W)
-        *reinterpret_cast<float4*>(dfmap + ((static_cast<size_t>(b) * H + y) * W + x) * C + c0 +
-                                   4 * quad) = acc[r][j];
+        store_quad(dfmap + ((static_cast<size_t>(b) * H + y) * W + x) * C + c0 + 4 * quad,
+                   acc[r][j]);
     }
   }
 }
 
-template <int XC, int NSLOT>
-int launch_backward(const float* g, const Scratch& s, float* dfmap, int B, int H, int W, int C,
-                    int K, int P, int nbands, cudaStream_t stream) {
+template <typename T, int XC, int NSLOT>
+int launch_backward(const T* g, const Scratch& s, T* dfmap, int B, int H, int W, int C, int K,
+                    int P, int nbands, cudaStream_t stream) {
   constexpr int kBwdChannels = bwd_channels(XC);
-  const size_t stage = static_cast<size_t>(P) * (kBwdChannels * 4 + sizeof(TapRec)) + XC * 4;
+  const size_t stage =
+      static_cast<size_t>(P) * (kBwdChannels * sizeof(T) + sizeof(TapRec)) + XC * 4;
   const size_t smem = kListChunk * sizeof(RowEntry) + kBandRows * P * kBwdChannels * 4 +
                       kBwdStages * stage;
-  cudaError_t err = cudaFuncSetAttribute(crop_rois_backward_kernel<XC, NSLOT>,
+  cudaError_t err = cudaFuncSetAttribute(crop_rois_backward_kernel<T, XC, NSLOT>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid(static_cast<unsigned>(B) * nbands, (C + kBwdChannels - 1) / kBwdChannels,
                   (W + XC - 1) / XC);
-  crop_rois_backward_kernel<XC, NSLOT><<<grid, kBwdThreads, smem, stream>>>(
+  crop_rois_backward_kernel<T, XC, NSLOT><<<grid, kBwdThreads, smem, stream>>>(
       g, s.lists, s.counts, s.xtaps, s.xrange, dfmap, H, W, C, K, P, nbands);
   return static_cast<int>(cudaGetLastError());
 }
 
 // the slots of a g slice a thread sums: P * CH / 4 over kBwdThreads
-template <int XC>
-int launch_backward_p(const float* g, const Scratch& s, float* dfmap, int B, int H, int W, int C,
-                      int K, int P, int nbands, cudaStream_t stream) {
+template <typename T, int XC>
+int launch_backward_p(const T* g, const Scratch& s, T* dfmap, int B, int H, int W, int C, int K,
+                      int P, int nbands, cudaStream_t stream) {
   const int slots = (P * bwd_channels(XC) / 4 + kBwdThreads - 1) / kBwdThreads;
-  return slots <= 1   ? launch_backward<XC, 1>(g, s, dfmap, B, H, W, C, K, P, nbands, stream)
-         : slots <= 2 ? launch_backward<XC, 2>(g, s, dfmap, B, H, W, C, K, P, nbands, stream)
-         : slots <= 4 ? launch_backward<XC, 4>(g, s, dfmap, B, H, W, C, K, P, nbands, stream)
-                      : launch_backward<XC, 8>(g, s, dfmap, B, H, W, C, K, P, nbands, stream);
+  return slots <= 1   ? launch_backward<T, XC, 1>(g, s, dfmap, B, H, W, C, K, P, nbands, stream)
+         : slots <= 2 ? launch_backward<T, XC, 2>(g, s, dfmap, B, H, W, C, K, P, nbands, stream)
+         : slots <= 4 ? launch_backward<T, XC, 4>(g, s, dfmap, B, H, W, C, K, P, nbands, stream)
+                      : launch_backward<T, XC, 8>(g, s, dfmap, B, H, W, C, K, P, nbands, stream);
 }
 
-}  // namespace
-
-// Plain C interface for ctypes. Returns cudaGetLastError() after the launch.
-
-// Bytes of scratch crop_rois_backward_f32 needs (16-byte aligned).
-extern "C" size_t crop_rois_backward_scratch_bytes(int B, int H, int W, int K, int P) {
-  return carve(nullptr, B, H, W, K, P).bytes;  // pointers unused
+// The backward of the shapes the gather above does not take (C % 4 != 0 or
+// P > kMaxPool): thread (b, y, x, c) walks every sample row of its image,
+// and of the rows that touch y every sample that touches x, in ascending
+// (k, py, px): x summed within a row, then y.
+template <typename T>
+__global__ void __launch_bounds__(256)
+    crop_rois_backward_any_kernel(const T* __restrict__ g, const float* __restrict__ boxes,
+                                  T* __restrict__ dfmap, size_t total, int H, int W, int C, int K,
+                                  int P) {
+  const size_t idx = static_cast<size_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (idx >= total) return;
+  const int c = static_cast<int>(idx % C);
+  const int x = static_cast<int>(idx / C % W);
+  const int y = static_cast<int>(idx / C / W % H);
+  const size_t b = idx / C / W / H;
+  float acc = 0.f;
+  for (int k = 0; k < K; ++k) {
+    const float* bx = boxes + 4 * (b * K + k);
+    const T* groi = g + (b * K + k) * P * P * C + c;
+    for (int py = 0; py < P; ++py) {
+      const Taps ty = sample(bx[1], bx[3], H, py, P);
+      const float wy = (ty.valid && ty.i0 == y ? ty.w0 : 0.f) + (ty.valid && ty.i1 == y ? ty.w1 : 0.f);
+      if (wy == 0.f) continue;
+      float h = 0.f;
+      for (int px = 0; px < P; ++px) {
+        const Taps tx = sample(bx[0], bx[2], W, px, P);
+        const float wx =
+            (tx.valid && tx.i0 == x ? tx.w0 : 0.f) + (tx.valid && tx.i1 == x ? tx.w1 : 0.f);
+        if (wx != 0.f) h += wx * to_float(groi[(static_cast<size_t>(py) * P + px) * C]);
+      }
+      acc += wy * h;
+    }
+  }
+  dfmap[idx] = from_float<T>(acc);
 }
 
-// g, dfmap, scratch 16-byte aligned; C % 4 == 0; 1 <= P <= kMaxPool.
-// Returns cudaErrorInvalidValue, launching nothing, otherwise.
-extern "C" int crop_rois_backward_f32(const void* g, const void* boxes, void* scratch,
-                                      void* dfmap, int B, int H, int W, int C, int K, int P,
-                                      void* stream) {
+// g, dfmap, scratch and boxes 16-byte aligned for the gather (any alignment
+// of the element type for the other shapes); P >= 1. Returns
+// cudaErrorInvalidValue, launching nothing, otherwise.
+template <typename T>
+int backward(const void* g, const void* boxes, void* scratch, void* dfmap, int B, int H, int W,
+             int C, int K, int P, void* stream) {
+  if (P < 1) return static_cast<int>(cudaErrorInvalidValue);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const T* gp = static_cast<const T*>(g);
+  T* dp = static_cast<T*>(dfmap);
+  if (C % 4 != 0 || P > kMaxPool) {
+    const size_t total = static_cast<size_t>(B) * H * W * C;
+    crop_rois_backward_any_kernel<T><<<static_cast<unsigned>((total + 255) / 256), 256, 0, s>>>(
+        gp, static_cast<const float*>(boxes), dp, total, H, W, C, K, P);
+    return static_cast<int>(cudaGetLastError());
+  }
   const bool aligned = reinterpret_cast<uintptr_t>(g) % 16 == 0 &&
                        reinterpret_cast<uintptr_t>(dfmap) % 16 == 0 &&
                        reinterpret_cast<uintptr_t>(scratch) % 16 == 0 &&
                        reinterpret_cast<uintptr_t>(boxes) % 16 == 0;
-  if (!aligned || C % 4 != 0 || P < 1 || P > kMaxPool)
-    return static_cast<int>(cudaErrorInvalidValue);
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (!aligned) return static_cast<int>(cudaErrorInvalidValue);
   const Scratch sc = carve(scratch, B, H, W, K, P);
   const int nbands = (H + kBandRows - 1) / kBandRows;
   const size_t idx_smem = sizeof(float4) * K + sizeof(TapRec) * P;
@@ -641,10 +725,29 @@ extern "C" int crop_rois_backward_f32(const void* g, const void* boxes, void* sc
       nbands);
   const int err = static_cast<int>(cudaGetLastError());
   if (err != 0) return err;
-  const float* gp = static_cast<const float*>(g);
-  float* dp = static_cast<float*>(dfmap);
-  return W <= 32 ? launch_backward_p<32>(gp, sc, dp, B, H, W, C, K, P, nbands, s)
-                 : launch_backward_p<64>(gp, sc, dp, B, H, W, C, K, P, nbands, s);
+  return W <= 32 ? launch_backward_p<T, 32>(gp, sc, dp, B, H, W, C, K, P, nbands, s)
+                 : launch_backward_p<T, 64>(gp, sc, dp, B, H, W, C, K, P, nbands, s);
+}
+
+}  // namespace
+
+// Plain C interface for ctypes. Returns cudaGetLastError() after the launch.
+
+// Bytes of scratch the backward needs (16-byte aligned), whatever g's dtype.
+extern "C" size_t crop_rois_backward_scratch_bytes(int B, int H, int W, int K, int P) {
+  return carve(nullptr, B, H, W, K, P).bytes;  // pointers unused
+}
+
+extern "C" int crop_rois_backward_f32(const void* g, const void* boxes, void* scratch,
+                                      void* dfmap, int B, int H, int W, int C, int K, int P,
+                                      void* stream) {
+  return backward<float>(g, boxes, scratch, dfmap, B, H, W, C, K, P, stream);
+}
+
+extern "C" int crop_rois_backward_bf16(const void* g, const void* boxes, void* scratch,
+                                       void* dfmap, int B, int H, int W, int C, int K, int P,
+                                       void* stream) {
+  return backward<__nv_bfloat16>(g, boxes, scratch, dfmap, B, H, W, C, K, P, stream);
 }
 
 extern "C" int crop_rois_f32(const void* fmap, const void* boxes, void* out, int B, int H, int W,

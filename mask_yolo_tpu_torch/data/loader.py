@@ -1,10 +1,10 @@
 """GT loading & geometry: dataset sample → fixed-shape training arrays — a
-copy of `mask_yolo_tpu/data/loader.py`, without `augmentation=`.
+copy of `mask_yolo_tpu/data/loader.py`.
 
 Host-side counterpart of the reference's load_image_gt / extract_bboxes
 (reference myolo/myolo_utils.py:247-366). Everything returned here is
 fixed-shape (padded to MAX_GT_INSTANCES / TRUE_BOX_BUFFER) so the device-side
-pipeline can be compiled once — the reference instead carries ragged arrays
+pipeline sees one shape — the reference instead carries ragged arrays
 into TF ops (SURVEY.md §7 "Hard parts").
 """
 
@@ -48,10 +48,6 @@ def load_image_gt(dataset, config, image_id, augment=False, augmentation=None,
     subsampling in pack_gt when threaded there); None falls back to the
     global stream. Pass a seeded state for deterministic pipelines.
     """
-    if augmentation is not None:
-        raise NotImplementedError(
-            "augmentation= is not ported yet (ROADMAP Queue 1, augmentation, "
-            "pooled data workers and native image ops)")
     if rng is None:
         rng = np.random
     image = dataset.load_image(image_id)
@@ -64,6 +60,16 @@ def load_image_gt(dataset, config, image_id, augment=False, augmentation=None,
         if rng.randint(0, 2):
             image = np.fliplr(image)
             mask = np.fliplr(mask)
+
+    if augmentation is not None:
+        # seeded augmenters (data/augment.py Sequential) own their stream;
+        # bare callables keep the legacy (image, mask) contract; imgaug-style
+        # augmenters (duck-typed on augment_image) are adapted with the
+        # reference's mask-safety semantics (augment.ImgaugAdapter,
+        # myolo_utils.py:306-343)
+        from .augment import as_augmenter
+
+        image, mask = as_augmenter(augmentation)(image, mask)
 
     # Drop instances whose mask vanished during resize (myolo_utils.py:345-349)
     _idx = np.sum(mask, axis=(0, 1)) > 0
@@ -91,6 +97,50 @@ def minimize_mask(bbox, mask, mini_shape) -> np.ndarray:
         m = image_ops.resize_bilinear(m[..., None], mini_shape)[..., 0]
         mini[:, :, i] = np.around(m).astype(bool)
     return mini
+
+
+def expand_mask(bbox, mini_mask, image_shape) -> np.ndarray:
+    """Inverse of minimize_mask: resize each mini-mask back into its box on a
+    full-size canvas (the expand_masks() the reference's docstring promises at
+    myolo_utils.py:415 but never ships). Returns bool [H, W, N]."""
+    mini_mask = np.asarray(mini_mask)
+    n = mini_mask.shape[-1]
+    full = np.zeros(tuple(image_shape[:2]) + (n,), dtype=bool)
+    for i in range(n):
+        x1, y1, x2, y2 = (int(v) for v in bbox[i][:4])
+        h, w = y2 - y1, x2 - x1
+        if h <= 0 or w <= 0:
+            continue
+        m = image_ops.resize_bilinear(
+            mini_mask[:, :, i].astype(np.float32)[..., None], (h, w))[..., 0]
+        full[y1:y2, x1:x2, i] = np.around(m).astype(bool)
+    return full
+
+
+def compute_backbone_shapes(config, image_shape=None) -> np.ndarray:
+    """[h, w] of the backbone's output feature map (reference
+    myolo_utils.py:142-151, which asserts mobilenet and divides by
+    BACKBONE_STRIDES)."""
+    if image_shape is None:
+        image_shape = config.IMAGE_SHAPE
+    stride = config.BACKBONE_STRIDES[0] if isinstance(
+        config.BACKBONE_STRIDES, (list, tuple)) else config.BACKBONE_STRIDES
+    return np.array([int(np.ceil(image_shape[0] / stride)),
+                     int(np.ceil(image_shape[1] / stride))])
+
+
+def mold_image(images, config) -> np.ndarray:
+    """RGB → float32 with the mean pixel subtracted (reference
+    myolo_utils.py:153-158)."""
+    return np.asarray(images).astype(np.float32) - np.asarray(
+        config.MEAN_PIXEL, dtype=np.float32)
+
+
+def unmold_image(normalized_images, config) -> np.ndarray:
+    """Inverse of mold_image: back to uint8 RGB."""
+    return np.around(
+        np.asarray(normalized_images)
+        + np.asarray(config.MEAN_PIXEL, dtype=np.float32)).astype(np.uint8)
 
 
 def pack_gt(class_ids, boxes, masks, config, rng=None):

@@ -3,7 +3,8 @@
 Modes, as in the JAX package:
   "training"   `train` the full network (YOLO loss + mask loss);
   "yolo"       `train` the backbone and YOLO head on the YOLO loss alone;
-  "inference"  `detect` / `detect_batch`, and `quantize` for the int8 path.
+  "inference"  `detect` / `detect_batch` / `infer_yolo`, and `quantize` for
+               the int8 path (which then serves all three).
 
 Weights: a training or yolo model starts from flax's default initializers
 (LeCun-normal kernels, as the JAX package's `net.init`), drawn from the
@@ -12,9 +13,11 @@ which give spread scores and masks for the smoke runs
 (`models/network.py`). `load_jax_variables` loads the JAX package's weights,
 `load_weights` a checkpoint of `train` or `save_weights`.
 
-Training runs in float32, the configs' default COMPUTE_DTYPE: a bf16 network
-holds rounded parameters, and Adam would update those, so bf16 training
-raises until it gets f32 master weights (ROADMAP Queue 1).
+A training or yolo model holds float32 parameters whatever COMPUTE_DTYPE is
+and casts them to it at each use, as flax does (`param_dtype=float32`): with
+COMPUTE_DTYPE "bfloat16" the convolutions and the crop run in bf16, Adam
+updates the f32 masters, and checkpoints hold the masters. An inference
+model holds its parameters in the compute dtype and pays no cast.
 
 The model keeps an f32 host copy of its weights (`_host_state`, a torch
 state_dict of numpy arrays), which `quantize` folds as the JAX package does;
@@ -33,15 +36,17 @@ import numpy as np
 import torch
 
 from . import pipelines, weights
-from .data.pipeline import BatchGenerator, preload_dataset
+from .data.pipeline import (BatchGenerator, GeneratorEpochSource, data_generator,
+                            preload_dataset)
 from .data.prefetch import to_device
 from .models.network import MaskYoloNet
 from .quant import QuantizedDetector
 from .train import state as state_lib
 from .train import trainer as trainer_lib
+from .utils.host_ops import BoundBox, unmold_mask
 
-BF16_TRAINING = ("bf16 training is not ported yet: a bfloat16 network holds rounded "
-                 "parameters (ROADMAP Queue 1, bf16 training with f32 master weights)")
+_NO_VISUALIZE = ("display=True needs utils/visualize.py, which is not ported yet "
+                 "(ROADMAP Queue 1 #5, item 8: the rest of the MaskYOLO facade)")
 
 
 class MaskYOLO:
@@ -49,8 +54,6 @@ class MaskYOLO:
                  yolo_trainable=True, seed: int = 0, device="cuda"):
         if mode not in ("training", "inference", "yolo"):
             raise ValueError(f"mode must be 'training', 'inference' or 'yolo', got {mode!r}")
-        if mode != "inference" and config.COMPUTE_DTYPE != "float32":
-            raise NotImplementedError(BF16_TRAINING)
         device = torch.device(device)
         if device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("device='cuda' requested but no CUDA device is available")
@@ -70,7 +73,7 @@ class MaskYOLO:
         self._train_step = None
         self._layer_regex = ".*"
 
-        def build(compute_dtype):
+        def build(compute_dtype, param_dtype=None):
             return MaskYoloNet(
                 num_classes=config.NUM_CLASSES,
                 n_box=config.N_BOX,
@@ -78,10 +81,12 @@ class MaskYOLO:
                 mask_pool_size=config.MASK_POOL_SIZE,
                 backbone=config.BACKBONE,
                 compute_dtype=compute_dtype,
+                param_dtype=param_dtype,
             )
 
         # draw the seeded weights in f32, keep them, then load them into the
-        # compute-dtype network (the same rounding as drawing into it)
+        # network: f32 masters for training, the compute dtype for inference
+        # (the same rounding as drawing into it)
         f32 = build("float32")
         generator = torch.Generator().manual_seed(seed)
         if mode == "inference":
@@ -89,7 +94,8 @@ class MaskYOLO:
         else:
             f32.init_flax_defaults(generator)
         self._host_state = {k: v.numpy().copy() for k, v in f32.state_dict().items()}
-        self.net = build(config.COMPUTE_DTYPE)
+        self.net = build(config.COMPUTE_DTYPE,
+                         None if mode == "inference" else "float32")
         self.net.load_state_dict(f32.state_dict())
         self.net.to(device=device, memory_format=torch.channels_last).eval()
 
@@ -108,8 +114,6 @@ class MaskYOLO:
         and the train step. `momentum` is accepted for signature parity;
         Adam ignores it. yolo_trainable=False freezes the backbone and the
         YOLO head, the whole image→YOLO-output path."""
-        if self.config.COMPUTE_DTYPE != "float32":
-            raise NotImplementedError(BF16_TRAINING)
         frozen = () if self.yolo_trainable else ("backbone", "yolo")
         self._tx = state_lib.make_optimizer(
             learning_rate, self.config, dict(self.net.named_parameters()),
@@ -128,7 +132,15 @@ class MaskYOLO:
               layers="all", augmentation=None, custom_callbacks=None,
               no_augmentation_sources=None, verbose=True, profile_dir=None,
               resume_from=None, stop_after_epoch=None):
-        """Train on preloaded datasets (the JAX package's signature).
+        """Train (the JAX package's signature).
+
+        Without `augmentation` the train set is preloaded once and batched
+        by a `BatchGenerator`; with it (a `data/augment.py` augmenter, a
+        bare callable or an imgaug-style object) every epoch draws
+        len(train) // BATCH_SIZE batches from the endless `data_generator`,
+        which re-reads and re-augments each image, on DATA_WORKERS loader
+        workers when that is positive. profile_dir: a `torch.profiler`
+        trace of a few steps of the first epoch is written there.
 
         Each epoch runs min(STEPS_PER_EPOCH, batches) steps (all batches when
         STEPS_PER_EPOCH is 0), then validates on min(VALIDATION_STEPS,
@@ -144,25 +156,24 @@ class MaskYOLO:
         `epochs`. stop_after_epoch: return once that epoch's checkpoint is
         written, while the schedules still see the full `epochs` horizon.
         """
-        if augmentation is not None:
-            raise NotImplementedError(
-                "augmentation= is not ported yet (ROADMAP Queue 1, augmentation, "
-                "pooled data workers and native image ops)")
-        if profile_dir is not None:
-            raise NotImplementedError(
-                "profile_dir is not ported yet (ROADMAP Queue 1, training profiler traces)")
-        if int(getattr(self.config, "DATA_WORKERS", 0) or 0) > 0:
-            raise NotImplementedError(
-                "DATA_WORKERS > 0 is not ported yet (ROADMAP Queue 1, augmentation, "
-                "pooled data workers and native image ops)")
         if max(int(self.config.DATA_PARALLEL or 0), int(self.config.MODEL_PARALLEL or 1)) > 1:
             raise NotImplementedError(
                 "multi-device training is not ported yet (ROADMAP Queue 1 item 11, "
                 "parallel: DDP over NCCL)")
         layer_regex = {"all": ".*"}.get(layers, layers)
         mode = self._loss_mode
-        train_gen = BatchGenerator(preload_dataset(train_dataset, self.config), self.config,
-                                   mode=mode, shuffle=True, seed=self.seed)
+        if augmentation is not None:
+            # floor, not ceil: data_generator emits full batches only (the
+            # remainder rolls into the next pull), so ceil would drift the
+            # epoch boundary off the dataset pass and its shuffle point
+            steps = max(1, len(train_dataset.image_ids) // self.config.BATCH_SIZE)
+            train_gen = GeneratorEpochSource(
+                data_generator(train_dataset, self.config, shuffle=True,
+                               augmentation=augmentation, mode=mode),
+                steps, self.config)
+        else:
+            train_gen = BatchGenerator(preload_dataset(train_dataset, self.config),
+                                       self.config, mode=mode, shuffle=True, seed=self.seed)
         val_gen = BatchGenerator(preload_dataset(val_dataset, self.config), self.config,
                                  mode=mode, shuffle=False)
 
@@ -194,6 +205,7 @@ class MaskYOLO:
                     print(f"Epoch {epoch + 1}/{epochs}")
                 state, metrics = trainer_lib.run_epoch(
                     self._train_step, state, train_gen, verbose=verbose,
+                    profile_dir=profile_dir if epoch == start_epoch else None,
                     max_steps=steps_cap)
                 train_gen.on_epoch_end()
 
@@ -220,6 +232,8 @@ class MaskYOLO:
                               f"(stop_after_epoch; target {epochs})")
                     break
         finally:
+            if augmentation is not None:
+                train_gen.gen.close()   # stops the loader workers
             self.net.eval()
             self._sync_host_state()
         return state
@@ -264,14 +278,24 @@ class MaskYOLO:
         self._sync_host_state()
 
     def _sync_host_state(self):
+        """The f32 host copy of the weights (of the masters, for a training
+        model)."""
         self._host_state = {k: v.detach().float().cpu().numpy() if v.is_floating_point()
                             else v.detach().cpu().numpy()
                             for k, v in self.net.state_dict().items()}
 
+    def _load_live_state(self, params, batch_stats):
+        """Copy live tensors (a TrainState's parameters and BatchNorm
+        statistics) into the network, device to device, cast to its dtypes.
+        The host copy is refreshed when `quantize` next needs it."""
+        self._invalidate_infer_fns()
+        state_lib.load_into(self.net, params, batch_stats)
+        self._host_state = None
+
     def _invalidate_infer_fns(self):
         """Drop the int8 detector: it snapshots the weights, so any weight
-        change (load_weights, train) must drop it or detect would keep
-        serving the stale graph."""
+        change (load_weights, train) must drop it or detect and infer_yolo
+        would keep serving the stale graph."""
         self._qdet = None
 
     # -- inference -------------------------------------------------------------
@@ -286,7 +310,7 @@ class MaskYOLO:
         self._invalidate_infer_fns()
 
     def quantize(self, calib_images, finetune_steps: int = 0):
-        """Switch detect/detect_batch to the int8 path (post-training
+        """Switch detect/detect_batch/infer_yolo to the int8 path (post-training
         quantization, quant.py). calib_images: [N, H, W, 3] uint8 (divided
         by 255) or float in [0, 1], for the activation-range calibration,
         which runs on the model's device. The config's QUANT_* switches pick
@@ -302,6 +326,8 @@ class MaskYOLO:
         calib = calib.to(self.device)
         if not calib.is_floating_point():
             calib = calib.float() / 255.0
+        if self._host_state is None:
+            self._sync_host_state()
         self._qdet = QuantizedDetector.from_variables(
             weights.to_jax_variables(self._host_state), self.config, calib,
             device=self.device)
@@ -316,24 +342,68 @@ class MaskYOLO:
         return images.to(self.device, non_blocking=True)
 
     @torch.inference_mode()
-    def detect_batch(self, images):
+    def detect_batch(self, images, weights_dir=None):
         """[B, H, W, 3] uint8, or float in [0, 1] (numpy or tensor) → the
         fixed-shape dict of tensors on the model's device (see
-        pipelines.detect_outputs); the int8 path after quantize()."""
+        pipelines.detect_outputs); the int8 path after quantize().
+        weights_dir: a checkpoint to load first."""
+        if weights_dir is not None:
+            self.load_weights(weights_dir)
         if self._qdet is not None:
             return self._qdet.detect_outputs(self._images(images))
         self.net.eval()
         return pipelines.detect_outputs(self.net, self._images(images), self.config)
 
-    def detect(self, image, cs_threshold=0.35, display=False):
-        """One uint8 [H, W, 3] image → [{bboxes, class_ids,
-        confidence_scores, full_masks [H, W, N]}] as numpy arrays."""
+    @torch.inference_mode()
+    def _infer_yolo_batch(self, images):
+        """[B, H, W, 3] uint8 or float in [0, 1] → pipelines.infer_yolo_outputs'
+        dict of tensors on the model's device; the int8 trunk after
+        quantize()."""
+        if self._qdet is not None:
+            return self._qdet.infer_yolo_outputs(self._images(images))
+        self.net.eval()
+        return pipelines.infer_yolo_outputs(self.net, self._images(images), self.config)
+
+    def _one_image(self, image, weights_dir, display):
         if display:
-            raise NotImplementedError("visualize is not ported yet (ROADMAP Queue 1)")
+            raise NotImplementedError(_NO_VISUALIZE)
         image = np.asarray(image)
         if image.dtype != np.uint8:
             raise ValueError(f"expected a uint8 image, got {image.dtype}")
-        out = {k: v.cpu().numpy() for k, v in self.detect_batch(image[None]).items()}
+        if weights_dir is not None:
+            self.load_weights(weights_dir)
+        return image[None]
+
+    def infer_yolo(self, image, weights_dir=None, save_path="./img_results/",
+                   display=False):
+        """Detection-only inference on one uint8 [H, W, 3] image: a list of
+        `BoundBox` (utils/host_ops.py: .xmin/.get_label()/.get_score() and
+        dict access), normalized coordinates. After quantize() this serves
+        the int8 trunk, like detect. save_path is where display=True will
+        write its figure once visualize is ported; until then display=True
+        raises (the JAX package's default is True)."""
+        del save_path
+        out = {k: v.cpu().numpy() for k, v in
+               self._infer_yolo_batch(self._one_image(image, weights_dir, display)).items()}
+        boxes = []
+        for i in np.where(out["valid"][0])[0]:
+            x1, y1, x2, y2 = out["boxes"][0, i]
+            boxes.append(BoundBox(xmin=float(x1), ymin=float(y1), xmax=float(x2),
+                                  ymax=float(y2), score=float(out["scores"][0, i]),
+                                  label=int(out["classes"][0, i])))
+        return boxes
+
+    def detect(self, image, weights_dir=None, save_path="./img_results/",
+               cs_threshold=0.35, display=False):
+        """One uint8 [H, W, 3] image → [{bboxes, class_ids,
+        confidence_scores, full_masks [H, W, N]}] as numpy arrays (the JAX
+        package's parameters in its order; display=True raises until
+        visualize is ported, so it defaults to False here)."""
+        del save_path
+        if self.mode != "inference":
+            raise ValueError("detect needs a model in 'inference' mode")
+        out = {k: v.cpu().numpy() for k, v in
+               self.detect_batch(self._one_image(image, weights_dir, display)).items()}
         idx = np.where(out["valid"][0] & (out["scores"][0] >= cs_threshold))[0]
         return [{
             "bboxes": out["boxes"][0][idx],
@@ -341,3 +411,24 @@ class MaskYOLO:
             "confidence_scores": out["scores"][0][idx],
             "full_masks": np.transpose(out["masks"][0][idx], (1, 2, 0)),
         }]
+
+    def decode_masks(self, detections, myolo_mask, image_shape):
+        """Host-side reformatting kept for API parity. detections:
+        [1, N, 6] (pixel x1, y1, x2, y2, score, class); myolo_mask:
+        [1, N, mh, mw, C]. Returns (boxes, class_ids, scores, full masks
+        [H, W, N]) of the boxes with a positive area."""
+        det = np.asarray(detections[0])
+        masks = np.asarray(myolo_mask[0])
+        n = det.shape[0]
+        boxes = det[:, :4]
+        scores = det[:, 4]
+        class_ids = det[:, 5].astype(np.int32)
+        sel = masks[np.arange(n), :, :, class_ids]
+        area = (boxes[:, 2] - boxes[:, 0]) * (boxes[:, 3] - boxes[:, 1])
+        keep = area > 0
+        boxes, class_ids, scores, sel = (boxes[keep], class_ids[keep],
+                                         scores[keep], sel[keep])
+        full = [unmold_mask(m, b, image_shape) for m, b in zip(sel, boxes)]
+        full = (np.stack(full, axis=-1) if full
+                else np.empty(tuple(image_shape[:2]) + (0,)))
+        return boxes, class_ids, scores, full

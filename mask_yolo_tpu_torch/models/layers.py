@@ -3,11 +3,14 @@
 Layout: modules take and return NCHW tensors in `torch.channels_last` memory,
 so the NHWC views the public functions hand out are free `permute`s.
 
-Precision follows the flax modules: convolutions run in the compute dtype
-(their parameters are created in it; flax casts its f32 kernels to the same
-dtype at call time, which rounds identically), BatchNorm runs in float32.
-A bf16 network's parameters are therefore rounded copies, so it serves but
-does not train (model.py raises).
+Precision follows the flax modules: convolutions run in the compute dtype,
+BatchNorm runs in float32 (its statistics too, whatever the input's dtype).
+flax keeps f32 parameters (`param_dtype=float32`) and casts them to the
+compute dtype at each use. A network built with `param_dtype=float32` does
+the same: its conv parameters are f32 masters, cast where they are used, so
+autograd hands f32 gradients to them (bf16 training). By default the
+parameters are created in the compute dtype instead, which rounds
+identically and pays no cast per call: the inference network.
 
 BatchNorm follows flax's `nn.BatchNorm` in train mode too (`BatchNorm`).
 
@@ -54,17 +57,38 @@ class SameConv2d(nn.Conv2d):
     inputs)."""
 
     def __init__(self, cin, cout, kernel, stride=1, groups=1, bias=True,
-                 dtype=torch.float32):
+                 dtype=torch.float32, param_dtype=None):
         self.same_stride = stride
+        self.compute_dtype = dtype
         super().__init__(cin, cout, kernel, stride=stride,
                          padding=(kernel - 1) // 2 if stride == 1 else 0,
-                         groups=groups, bias=bias, dtype=dtype)
+                         groups=groups, bias=bias, dtype=param_dtype or dtype)
 
     def forward(self, x):
-        x = x.to(self.weight.dtype)
+        x = x.to(self.compute_dtype)
         if self.same_stride != 1:
             x = same_pad(x, self.kernel_size[0], self.same_stride)
-        return super().forward(x)
+        return self._conv_forward(x, *cast_params(self, self.compute_dtype))
+
+
+def cast_params(conv, dtype):
+    """(weight, bias) of a conv module in `dtype`: the parameters themselves
+    where they are held in it, casts that autograd sees otherwise."""
+    bias = conv.bias
+    return conv.weight.to(dtype), None if bias is None else bias.to(dtype)
+
+
+class ConvTranspose2d(nn.ConvTranspose2d):
+    """nn.ConvTranspose2d computing in `dtype` on parameters held in
+    `param_dtype` (default: `dtype`)."""
+
+    def __init__(self, cin, cout, kernel, stride, dtype=torch.float32, param_dtype=None):
+        self.compute_dtype = dtype
+        super().__init__(cin, cout, kernel, stride=stride, dtype=param_dtype or dtype)
+
+    def forward(self, x):
+        weight, bias = cast_params(self, self.compute_dtype)
+        return F.conv_transpose2d(x.to(self.compute_dtype), weight, bias, self.stride)
 
 
 class BatchNorm(nn.BatchNorm2d):
@@ -107,10 +131,11 @@ class ConvBN(nn.Module):
     """Conv2D (no bias) + BatchNorm + relu6 (flax `ConvBN`: children `conv`,
     `bn`)."""
 
-    def __init__(self, cin, features, kernel=3, stride=1, dtype=torch.float32):
+    def __init__(self, cin, features, kernel=3, stride=1, dtype=torch.float32,
+                 param_dtype=None):
         super().__init__()
         self.conv = SameConv2d(cin, features, kernel, stride, bias=False,
-                               dtype=dtype)
+                               dtype=dtype, param_dtype=param_dtype)
         self.bn = batch_norm(features)
 
     def forward(self, x):
@@ -122,12 +147,13 @@ class DepthwiseSeparable(nn.Module):
     conv + BN + relu6 (flax children `conv_dw`, `conv_dw_bn`, `conv_pw`,
     `conv_pw_bn`)."""
 
-    def __init__(self, cin, features, stride=1, dtype=torch.float32):
+    def __init__(self, cin, features, stride=1, dtype=torch.float32, param_dtype=None):
         super().__init__()
         self.conv_dw = SameConv2d(cin, cin, 3, stride, groups=cin, bias=False,
-                                  dtype=dtype)
+                                  dtype=dtype, param_dtype=param_dtype)
         self.conv_dw_bn = batch_norm(cin)
-        self.conv_pw = SameConv2d(cin, features, 1, bias=False, dtype=dtype)
+        self.conv_pw = SameConv2d(cin, features, 1, bias=False, dtype=dtype,
+                                  param_dtype=param_dtype)
         self.conv_pw_bn = batch_norm(features)
 
     def forward(self, x):

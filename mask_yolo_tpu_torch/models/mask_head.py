@@ -14,22 +14,25 @@ import torch
 from torch import nn
 
 from ..ops.roi_crop import crop_rois
-from .layers import SameConv2d, batch_norm
+from .layers import ConvTranspose2d, SameConv2d, batch_norm
 
 CONV_FEATURES = 256
 
 
 class MaskHead(nn.Module):
-    def __init__(self, cin, num_classes, pool_size=14, dtype=torch.float32):
+    def __init__(self, cin, num_classes, pool_size=14, dtype=torch.float32,
+                 param_dtype=None):
         super().__init__()
         self.num_classes, self.pool_size, self.dtype = num_classes, pool_size, dtype
         for i in range(1, 5):
             self.add_module(f"mask_conv{i}", SameConv2d(
-                cin if i == 1 else CONV_FEATURES, CONV_FEATURES, 3, dtype=dtype))
+                cin if i == 1 else CONV_FEATURES, CONV_FEATURES, 3, dtype=dtype,
+                param_dtype=param_dtype))
             self.add_module(f"mask_bn{i}", batch_norm(CONV_FEATURES))
-        self.mask_deconv = nn.ConvTranspose2d(CONV_FEATURES, CONV_FEATURES, 2,
-                                              stride=2, dtype=dtype)
-        self.mask_out = SameConv2d(CONV_FEATURES, num_classes, 1, dtype=dtype)
+        self.mask_deconv = ConvTranspose2d(CONV_FEATURES, CONV_FEATURES, 2, stride=2,
+                                           dtype=dtype, param_dtype=param_dtype)
+        self.mask_out = SameConv2d(CONV_FEATURES, num_classes, 1, dtype=dtype,
+                                   param_dtype=param_dtype)
 
     def forward(self, rois, feature_map):
         """rois: [B, R, 4] normalized (x1, y1, x2, y2); feature_map:
@@ -51,7 +54,7 @@ class MaskHead(nn.Module):
             conv = getattr(self, f"mask_conv{i}")
             bn = getattr(self, f"mask_bn{i}")
             x = torch.relu(bn(conv(x).float()))   # BN in f32, as in flax
-        x = torch.relu(self.mask_deconv(x.to(self.dtype)))
+        x = torch.relu(self.mask_deconv(x))
         x = torch.sigmoid(self.mask_out(x).float())
         side = 2 * p
         return x.permute(0, 2, 3, 1).reshape(b, r, side, side, self.num_classes)

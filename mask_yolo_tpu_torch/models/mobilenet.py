@@ -16,12 +16,13 @@ _BLOCKS = ((64, 1), (64, 2), (128, 1), (256, 2), (256, 1), (512, 1))
 
 
 class MobileNetBackbone(nn.Module):
-    def __init__(self, dtype=torch.float32):
+    def __init__(self, dtype=torch.float32, param_dtype=None):
         super().__init__()
-        self.conv1 = ConvBN(3, 32, 3, 2, dtype=dtype)
+        self.conv1 = ConvBN(3, 32, 3, 2, dtype=dtype, param_dtype=param_dtype)
         cin = 32
         for i, (features, stride) in enumerate(_BLOCKS, start=1):
-            self.add_module(f"block{i}", DepthwiseSeparable(cin, features, stride, dtype))
+            self.add_module(f"block{i}", DepthwiseSeparable(cin, features, stride, dtype,
+                                                             param_dtype))
             cin = features
         self.out_channels = cin
 

@@ -16,6 +16,7 @@ import math
 import torch
 from torch import nn
 
+from .layers import SameConv2d
 from .mask_head import MaskHead
 from .mobilenet import MobileNetBackbone
 from .yolo_head import YoloHead
@@ -26,7 +27,11 @@ DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 class MaskYoloNet(nn.Module):
     def __init__(self, num_classes, n_box, top_feature_map_depth=256,
                  mask_pool_size=14, backbone="mobilenet",
-                 compute_dtype="float32"):
+                 compute_dtype="float32", param_dtype=None):
+        """param_dtype: the dtype the conv parameters are held in (default:
+        the compute dtype). "float32" with a bfloat16 compute dtype gives
+        the training network: f32 masters cast at each use, as flax keeps
+        them (models/layers.py)."""
         super().__init__()
         if backbone == "resnet50_fpn":
             raise NotImplementedError(
@@ -35,14 +40,15 @@ class MaskYoloNet(nn.Module):
         if backbone != "mobilenet":
             raise ValueError(f"unknown backbone {backbone!r}")
         dt = DTYPES[compute_dtype]
-        self.backbone = MobileNetBackbone(dtype=dt)
+        pdt = DTYPES[param_dtype or compute_dtype]
+        self.backbone = MobileNetBackbone(dtype=dt, param_dtype=pdt)
         c4 = self.backbone.out_channels
         # neck: reduce depth for the mask branch only
-        self.feature_map = nn.Conv2d(c4, top_feature_map_depth, 3, padding=1,
-                                     dtype=dt)
-        self.yolo = YoloHead(c4, n_box, num_classes, dtype=dt)
+        self.feature_map = SameConv2d(c4, top_feature_map_depth, 3, dtype=dt,
+                                      param_dtype=pdt)
+        self.yolo = YoloHead(c4, n_box, num_classes, dtype=dt, param_dtype=pdt)
         self.mask = MaskHead(top_feature_map_depth, num_classes, mask_pool_size,
-                             dtype=dt)
+                             dtype=dt, param_dtype=pdt)
 
     @torch.no_grad()
     def reset_parameters(self, generator: torch.Generator):
@@ -91,7 +97,7 @@ class MaskYoloNet(nn.Module):
         float32, fmap [B, h, w, C] in the compute dtype)."""
         x = image.permute(0, 3, 1, 2).contiguous(memory_format=torch.channels_last)
         c4 = self.backbone(x)
-        fmap = self.feature_map(c4.to(self.feature_map.weight.dtype))
+        fmap = self.feature_map(c4)
         return self.yolo(c4), fmap.permute(0, 2, 3, 1)
 
     def mask_branch(self, rois, fmap):

@@ -17,14 +17,15 @@ _BLOCKS = ((512, 2),) + ((512, 1),) * 5 + ((1024, 2), (1024, 1))
 
 
 class YoloHead(nn.Module):
-    def __init__(self, cin, n_box, num_classes, dtype=torch.float32):
+    def __init__(self, cin, n_box, num_classes, dtype=torch.float32, param_dtype=None):
         super().__init__()
         self.n_box, self.num_classes = n_box, num_classes
         for i, (features, stride) in enumerate(_BLOCKS, start=7):
-            self.add_module(f"block{i}", DepthwiseSeparable(cin, features, stride, dtype))
+            self.add_module(f"block{i}", DepthwiseSeparable(cin, features, stride, dtype,
+                                                             param_dtype))
             cin = features
         self.conv_23 = SameConv2d(cin, n_box * (5 + num_classes), 1,
-                                  dtype=dtype)
+                                  dtype=dtype, param_dtype=param_dtype)
 
     def forward(self, x):
         """x: [B, 512, h, w] → grid [B, gh, gw, nb, 5+C] float32."""

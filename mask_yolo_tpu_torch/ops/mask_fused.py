@@ -22,6 +22,16 @@ The weights arrive packed for the kernel (`pack_mask_weights`: K-contiguous,
 128-byte-swizzled rows); the plain version reads the same packed dict and
 unpacks it (`unpack_mask_weights`) on every call.
 
+The kernel's GEMM tiles are 128 input channels by 256 output channels, so
+`pack_mask_weights` pads the graph's widths with zero channels up to them
+(Cf to a multiple of `CIN_TILE`, co to `CO_TILE`), and the wrapper hands the
+kernel an fmap padded with zero channels where Cf is not a multiple
+already. A zero int8 channel adds nothing to an int32 product, a padded
+output channel has zero weights, scale and bias and so stays exactly 0
+through relu and requantize, and its class-conv weight is 0: the result
+equals the true width's. At the full widths (Cf = 256, co = 256) nothing is
+padded or copied.
+
 `fused_mask_branch.launches` counts kernel calls (one per call; CPU calls
 do not count).
 """
@@ -41,6 +51,12 @@ from .roi_align import crop_and_resize
 _LAYER_NAMES = ["mask_conv1", "mask_conv2", "mask_conv3", "mask_conv4", "mask_deconv",
                 "mask_out"]
 SWIZZLE_BYTES = 128   # the kernel's k-step and the swizzle's period
+CIN_TILE = 128        # input channels of a k-step (BK in csrc/fused_mask_branch.cu)
+CO_TILE = 256         # output channels of a GEMM block (BN there)
+
+
+def _round_up(n: int, to: int) -> int:
+    return -(-n // to) * to
 
 
 def _swizzle_index(n: int, kp: int):
@@ -74,14 +90,16 @@ def unswizzle_nk(w_nk, k: int):
 
 
 def pack_mask_weights(graph, num_classes: int):
-    """The quant graph's mask layers as the kernel's operands (numpy):
-    w1..w4 int8 [co, 9·Cin → 128] and wd int8 [4·co, co → 128], swizzled
-    K-contiguous rows (swizzle_nk of the im2col matrices [9·Cin, co] with
-    rows in (di, dj, ci) order and of the deconv's [co, 4·co]), wo [4·co,
-    4·nc] f32 holding bf16 values (block-diagonal), wsc [5, 4·co] and bias
-    [6, 4·co] f32 (zero-padded rows), asc [6] f32 activation scales. The
-    deconv's orientation is the graph's (quant._mask_layers).
-    unpack_mask_weights gives back the JAX package's operands."""
+    """The quant graph's mask layers as the kernel's operands (numpy), with
+    Cf padded to Cp (a multiple of CIN_TILE) and co to cp = CO_TILE by zero
+    channels: w1 int8 [cp, 9·Cp], w2..w4 int8 [cp, 9·cp] and wd int8
+    [4·cp, cp], swizzled K-contiguous rows (swizzle_nk of the im2col
+    matrices with rows in (di, dj, ci) order and of the deconv's [cp, 4·cp],
+    columns in (di, dj, o) order), wo [4·cp, 4·nc] f32 holding bf16 values
+    (block-diagonal), wsc [5, 4·cp] and bias [6, 4·cp] f32 (zero where
+    padded), asc [6] f32 activation scales. The deconv's orientation is the
+    graph's (quant._mask_layers). unpack_mask_weights gives back the plain
+    matrices at the padded widths."""
     layers = graph["mask"]
     assert [l.name for l in layers] == _LAYER_NAMES
     convs, deconv, out = layers[:4], layers[4], layers[5]
@@ -91,34 +109,64 @@ def pack_mask_weights(graph, num_classes: int):
             "(calibrate without QUANT_PER_CHANNEL_ACT)")
     cf = int(convs[0].kernel.shape[2])
     co = int(convs[0].kernel.shape[3])
-    max_o = 4 * co
-    ws = [np.asarray(convs[0].w_q).reshape(9 * cf, co)]
-    ws += [np.asarray(l.w_q).reshape(9 * co, co) for l in convs[1:]]
-    wd = np.asarray(deconv.w_q).reshape(co, 4 * co)
-    wo = torch.tensor(np.asarray(out.kernel, np.float32).reshape(4 * co, 4 * num_classes)
-                      ).to(torch.bfloat16).float().numpy()
-    wsc = np.zeros((5, max_o), np.float32)
-    bias = np.zeros((6, max_o), np.float32)
+    if co > CO_TILE:
+        raise ValueError(f"the fused mask kernel takes at most {CO_TILE} conv channels, "
+                         f"got {co}")
+    cfp, cop, nc = _round_up(cf, CIN_TILE), CO_TILE, num_classes
+
+    def conv_matrix(w_q, cin, cin_p):
+        w = np.zeros((3, 3, cin_p, cop), np.int8)
+        w[:, :, :cin, :co] = np.asarray(w_q).reshape(3, 3, cin, co)
+        return w.reshape(9 * cin_p, cop)
+
+    ws = [conv_matrix(convs[0].w_q, cf, cfp)]
+    ws += [conv_matrix(l.w_q, co, cop) for l in convs[1:]]
+    wd = np.zeros((cop, 4, cop), np.int8)
+    wd[:co, :, :co] = np.asarray(deconv.w_q).reshape(co, 4, co)
+    wd = wd.reshape(cop, 4 * cop)
+    wo = np.zeros((4, cop, 4 * nc), np.float32)
+    wo[:, :co] = torch.tensor(np.asarray(out.kernel, np.float32).reshape(4, co, 4 * nc)
+                              ).to(torch.bfloat16).float().numpy()
+    wo = wo.reshape(4 * cop, 4 * nc)
+    wsc = np.zeros((5, 4, cop), np.float32)
+    bias = np.zeros((6, 4, cop), np.float32)
     for i, l in enumerate(convs):
-        wsc[i, :co] = l.w_scale
-        bias[i, :co] = l.bias
-    wsc[4] = deconv.w_scale
-    bias[4] = deconv.bias
-    bias[5, :4 * num_classes] = out.bias
+        wsc[i, 0, :co] = l.w_scale
+        bias[i, 0, :co] = l.bias
+    wsc[4, :, :co] = np.asarray(deconv.w_scale, np.float32).reshape(4, co)
+    bias[4, :, :co] = np.asarray(deconv.bias, np.float32).reshape(4, co)
+    wsc, bias = wsc.reshape(5, 4 * cop), bias.reshape(6, 4 * cop)
+    bias[5, :4 * nc] = out.bias
     asc = np.asarray([l.a_scale for l in convs] + [deconv.a_scale, out.a_scale], np.float32)
     return {"w1": swizzle_nk(ws[0]), "w2": swizzle_nk(ws[1]), "w3": swizzle_nk(ws[2]),
             "w4": swizzle_nk(ws[3]), "wd": swizzle_nk(wd), "wo": wo, "wsc": wsc,
             "bias": bias, "asc": asc}
 
 
-def unpack_mask_weights(weights, cf: int):
-    """The plain version's operands from the packed ones (tensors): w1
-    [9·cf, co], w2..w4 [9·co, co], wd [co, 4·co] int8 (transposed views)."""
-    co = weights["w1"].shape[0]
-    out = {name: unswizzle_nk(weights[name], 9 * co) for name in ("w2", "w3", "w4")}
-    out["w1"] = unswizzle_nk(weights["w1"], 9 * cf)
-    out["wd"] = unswizzle_nk(weights["wd"], co)
+def packed_widths(weights):
+    """(Cp, cp): the padded fmap depth and conv width of packed weights."""
+    return weights["w1"].shape[1] // 9, weights["w1"].shape[0]
+
+
+def unpack_mask_weights(weights, cf: int | None = None, co: int | None = None):
+    """The plain matrices from the packed ones (tensors): w1 [9·cf, co],
+    w2..w4 [9·co, co], wd [co, 4·co] int8, cut to the fmap depth `cf` and
+    conv width `co` (None: the padded widths, which the plain version
+    multiplies by)."""
+    cfp, cop = packed_widths(weights)
+    cf, co = cf or cfp, co or cop
+    conv = lambda name, cin_p, cin: unswizzle_nk(weights[name], 9 * cin_p).reshape(  # noqa: E731
+        9, cin_p, cop)[:, :cin, :co].reshape(9 * cin, co)
+    out = {name: conv(name, cop, co) for name in ("w2", "w3", "w4")}
+    out["w1"] = conv("w1", cfp, cf)
+    out["wd"] = unswizzle_nk(weights["wd"], cop).reshape(cop, 4, cop)[:co, :, :co].reshape(
+        co, 4 * co)
     return out
+
+
+def _pad_channels(x, to: int):
+    """x with zero channels appended up to `to` (x itself when it has them)."""
+    return x if x.shape[-1] == to else F.pad(x, (0, to - x.shape[-1]))
 
 
 def weights_to(weights, device):
@@ -145,10 +193,10 @@ def fused_mask_branch_reference(fmap, boxes, classes, weights, pool: int, num_cl
     b, k = boxes.shape[:2]
     asc = [float(s) for s in np.asarray(weights["asc"], np.float32)]
     wsc, bias = weights["wsc"], weights["bias"]
-    co = weights["w1"].shape[0]
-    plain = unpack_mask_weights(weights, fmap.shape[-1])
+    cfp, co = packed_widths(weights)
+    plain = unpack_mask_weights(weights)
     crops = crop_and_resize(fmap.to(torch.bfloat16), boxes.float(), (pool, pool)).float()
-    x_q = quantize(crops.reshape(b * k * pool * pool, -1), asc[0])
+    x_q = _pad_channels(quantize(crops.reshape(b * k * pool * pool, -1), asc[0]), cfp)
     for li, name in enumerate(("w1", "w2", "w3", "w4")):
         acc = _conv3x3_rois(x_q, plain[name], pool)
         y = torch.relu(acc.float() * (wsc[li, :co] * asc[li]) + bias[li, :co])
@@ -192,18 +240,18 @@ def fused_mask_branch(fmap, boxes, classes, weights, pool: int = 14, num_classes
                         f"{classes.dtype}")
     if not (fmap.device == boxes.device == classes.device == weights["w1"].device):
         raise ValueError("fmap, boxes, classes and weights must share a device")
-    co, cf = weights["w1"].shape[0], fmap.shape[-1]
-    rows = lambda k: -(-k // SWIZZLE_BYTES) * SWIZZLE_BYTES   # noqa: E731
-    expect = {"w1": ((co, rows(9 * cf)), torch.int8), "w2": ((co, rows(9 * co)), torch.int8),
-              "w3": ((co, rows(9 * co)), torch.int8), "w4": ((co, rows(9 * co)), torch.int8),
-              "wd": ((4 * co, rows(co)), torch.int8),
+    co, cf = CO_TILE, _round_up(fmap.shape[-1], CIN_TILE)
+    expect = {"w1": ((co, 9 * cf), torch.int8), "w2": ((co, 9 * co), torch.int8),
+              "w3": ((co, 9 * co), torch.int8), "w4": ((co, 9 * co), torch.int8),
+              "wd": ((4 * co, co), torch.int8),
               "wo": ((4 * co, 4 * num_classes), torch.bfloat16),
               "wsc": ((5, 4 * co), torch.float32), "bias": ((6, 4 * co), torch.float32)}
     for name, (shape, dtype) in expect.items():
         t = weights[name]
         if tuple(t.shape) != shape or t.dtype != dtype or t.device != fmap.device:
             raise ValueError(f"weights[{name!r}]: expected packed {dtype} {shape} on "
-                             f"{fmap.device} for Cf={cf}, num_classes={num_classes}; got "
+                             f"{fmap.device} for Cf={fmap.shape[-1]}, "
+                             f"num_classes={num_classes}; got "
                              f"{t.dtype} {tuple(t.shape)} on {t.device}")
         if not t.is_contiguous():
             raise ValueError(f"weights[{name!r}] must be contiguous (the packed layout)")
@@ -211,15 +259,13 @@ def fused_mask_branch(fmap, boxes, classes, weights, pool: int = 14, num_classes
         return fused_mask_branch_reference(fmap, boxes, classes, weights, pool, num_classes)
     if fmap.device.type != "cuda":
         raise ValueError(f"fused_mask_branch runs on cpu or cuda tensors, got {fmap.device}")
-    b, h, w, cf = fmap.shape
+    b, h, w, _ = fmap.shape
     k = boxes.shape[1]
-    if cf % 128 or co != 256:
-        raise ValueError(f"the kernel needs Cf % 128 == 0 and co == 256, got {cf}, {co}")
     out = torch.empty((b, k, 2 * pool, 2 * pool), dtype=torch.float32, device=fmap.device)
     if out.numel() == 0:
         return out
     m = b * k * pool * pool
-    fmap = fmap.to(torch.bfloat16).contiguous()
+    fmap = _pad_channels(fmap.to(torch.bfloat16), cf).contiguous()
     boxes = boxes.contiguous()
     classes = classes.to(torch.int32).contiguous()
     wout = weights["wo"][:co, :num_classes].contiguous()   # block 0 of the class conv

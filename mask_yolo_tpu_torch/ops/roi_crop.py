@@ -7,12 +7,17 @@ tensor it runs the plain twin `roi_align.crop_and_resize`. The twin is the
 kernel's reference, never its fallback: there is no path from a CUDA tensor
 to it.
 
-For training, an f32 fmap that requires grad goes through an
+For training, an fmap that requires grad goes through an
 `autograd.Function` whose backward is `crop_rois_backward`: the kernel
-`crop_rois_backward_f32` on CUDA tensors, the twin
-`roi_align.crop_and_resize_backward` on CPU tensors. The boxes get no
-gradient, as in JAX (`roi_align.crop_and_resize` stops it). bf16 training is
-not ported, so a bf16 fmap that requires grad raises.
+`crop_rois_backward_f32` or `crop_rois_backward_bf16` (by the gradient's
+dtype) on CUDA tensors, the twin `roi_align.crop_and_resize_backward` on CPU
+tensors (for bf16 on the upcast gradient, rounded once at the end, as the
+kernel sums in f32 and rounds at the store). The boxes get no gradient, as
+in JAX (`roi_align.crop_and_resize` stops it).
+
+The backward takes any C and P: the gather kernel needs C % 4 == 0 and
+P <= 64, and the same entry point sends other shapes to a plain
+one-thread-per-value kernel (csrc/crop_rois.cu).
 
 The backward kernel first lists, for each band of `BWD_BAND_ROWS` fmap rows,
 the sample rows that touch it, and for each ROI and column the samples
@@ -35,6 +40,8 @@ from . import _build
 from .roi_align import crop_and_resize, crop_and_resize_backward, interp_matrix
 
 _SYMBOLS = {torch.float32: "crop_rois_f32", torch.bfloat16: "crop_rois_bf16"}
+_BWD_SYMBOLS = {torch.float32: "crop_rois_backward_f32",
+                torch.bfloat16: "crop_rois_backward_bf16"}
 BWD_BAND_ROWS = 2    # fmap rows of a backward block (kBandRows in csrc/crop_rois.cu)
 
 
@@ -48,6 +55,7 @@ ENTRY_POINTS = {
     "crop_rois_f32": (_launch_args(3), ctypes.c_int),
     "crop_rois_bf16": (_launch_args(3), ctypes.c_int),
     "crop_rois_backward_f32": (_launch_args(4), ctypes.c_int),
+    "crop_rois_backward_bf16": (_launch_args(4), ctypes.c_int),
     "crop_rois_backward_scratch_bytes": ([ctypes.c_int] * 5, ctypes.c_size_t),
 }
 
@@ -116,8 +124,8 @@ def crop_rois(fmap, boxes, pool: int):
 
     fmap: [B, H, W, C] float32 or bfloat16; boxes: [B, K, 4] float32
     normalized (x1, y1, x2, y2). Returns [B, K, pool, pool, C] in the fmap's
-    dtype. Samples outside the map are 0. Differentiable in the f32 fmap
-    (not in the boxes).
+    dtype. Samples outside the map are 0. Differentiable in the fmap (not
+    in the boxes).
     """
     if fmap.dim() != 4 or boxes.dim() != 3 or boxes.shape[-1] != 4 \
             or boxes.shape[0] != fmap.shape[0]:
@@ -132,10 +140,6 @@ def crop_rois(fmap, boxes, pool: int):
     _check("fmap", fmap, boxes)
     if not (torch.is_grad_enabled() and fmap.requires_grad):
         return _forward(fmap, boxes, pool)
-    if fmap.dtype != torch.float32:
-        raise NotImplementedError(
-            "the crop's backward is f32 only: bf16 training is not ported "
-            "(ROADMAP Queue 1, bf16 training with f32 master weights)")
     return _CropRois.apply(fmap, boxes.detach(), pool)
 
 
@@ -150,28 +154,29 @@ def _aligned(t):
 
 
 def crop_rois_backward(grad, boxes, fmap_hw):
-    """Gradient of `crop_rois` with respect to an f32 fmap: grad
-    [B, K, P, P, C] float32, boxes [B, K, 4] float32 → d_fmap [B, H, W, C].
-    The kernel takes C % 4 == 0 and P <= 64, any map size, and raises
-    otherwise."""
+    """Gradient of `crop_rois` with respect to its fmap: grad
+    [B, K, P, P, C] float32 or bfloat16, boxes [B, K, 4] float32 → d_fmap
+    [B, H, W, C] in grad's dtype (sums in f32, rounded once). Any C, P and
+    map size."""
     if grad.dim() != 5 or grad.shape[2] != grad.shape[3] or boxes.dim() != 3 \
             or tuple(boxes.shape) != (grad.shape[0], grad.shape[1], 4):
         raise ValueError(f"expected grad [B, K, P, P, C] and boxes [B, K, 4], got "
                          f"{tuple(grad.shape)} and {tuple(boxes.shape)}")
-    if grad.dtype != torch.float32 or boxes.dtype != torch.float32:
-        raise TypeError(f"grad and boxes must be float32, got {grad.dtype}, {boxes.dtype}")
+    if grad.dtype not in _BWD_SYMBOLS or boxes.dtype != torch.float32:
+        raise TypeError(f"grad must be float32 or bfloat16 and boxes float32, got "
+                        f"{grad.dtype}, {boxes.dtype}")
     _check("grad", grad, boxes)
     h, w = fmap_hw
     if grad.device.type == "cpu":
-        return crop_and_resize_backward(grad, boxes, (h, w))
+        return crop_and_resize_backward(grad.float(), boxes, (h, w)).to(grad.dtype)
     b, k, pool, _, c = grad.shape
     if k * pool == 0:   # no samples: the index kernel would launch an empty grid
-        return torch.zeros((b, h, w, c), dtype=torch.float32, device=grad.device)
-    out = torch.empty((b, h, w, c), dtype=torch.float32, device=grad.device)
+        return torch.zeros((b, h, w, c), dtype=grad.dtype, device=grad.device)
+    out = torch.empty((b, h, w, c), dtype=grad.dtype, device=grad.device)
     if out.numel():
         scratch = torch.empty(_scratch_bytes(b, h, w, k, pool), dtype=torch.uint8,
                               device=grad.device)
-        _launch("crop_rois_backward_f32", (_aligned(grad), _aligned(boxes), scratch, out),
+        _launch(_BWD_SYMBOLS[grad.dtype], (_aligned(grad), _aligned(boxes), scratch, out),
                 b, h, w, c, k, pool)
         crop_rois_backward.launches += 1
     return out

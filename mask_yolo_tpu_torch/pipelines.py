@@ -1,6 +1,7 @@
 """The training forward and the detect path — port of
 `mask_yolo_tpu/pipelines.py` (`training_loss`, `yolo_only_loss`,
-`images_f32`, `detect_outputs`, `detect_from_callables`).
+`images_f32`, `infer_yolo_outputs`, `infer_yolo_from_callables`,
+`detect_outputs`, `detect_from_callables`).
 
 `training_loss` runs the trunk, decodes the proposals (no gradient flows
 into them), assigns mask targets, keeps the MASK_TRAIN_TOP_ROIS best
@@ -14,6 +15,10 @@ valid-first re-sort, the mask branch on the surviving slots, the paste to
 the image canvas and the 0.5 threshold all run on the input's device, in
 fixed shapes, with no host round trip.
 
+`infer_yolo_outputs` is detection alone: decode, the conf-weighted class
+probabilities through the reference's softmax, the per-class greedy NMS
+(`ops/nms.py`, one chain for the whole batch) and each box's winning class.
+
 `lax.top_k` returns ties in index order; the port sorts with a stable
 descending sort to keep that order.
 """
@@ -24,7 +29,9 @@ import torch
 
 from .losses import mask_loss, yolo_loss
 from .ops.boxes import decode_detections, decode_yolo_proposals, norm_boxes
-from .ops.nms import index_order_class_nms_mask
+from .ops.nms import (class_aware_nms, first_argmax, index_order_class_nms_mask,
+                      per_class_topk_nms, reference_softmax)
+from .ops.nms import stable_top_k as _top_k
 from .ops.roi_align import paste_masks
 from .ops.target_assign import assign_mask_targets
 
@@ -35,13 +42,6 @@ def images_f32(images):
     if images.dtype == torch.uint8:
         return images.float() / 255.0
     return images
-
-
-def _top_k(values, k: int):
-    """(values, indices) of the k largest along the last axis, descending,
-    ties in index order (lax.top_k's order)."""
-    vals, idx = torch.sort(values, dim=-1, descending=True, stable=True)
-    return vals[..., :k], idx[..., :k]
 
 
 def _take(x, idx):
@@ -101,6 +101,57 @@ def yolo_only_loss(net, batch, config, seen, train: bool = True):
                               config, seen)
     metrics["loss"] = loss.detach()
     return loss, metrics
+
+
+def infer_yolo_outputs(net, images, config):
+    """Detection-only inference with a `MaskYoloNet`.
+
+    images: [B, H, W, 3] uint8 or float in [0, 1]. Returns per image
+    (N = GRID_H·GRID_W·N_BOX):
+      boxes   [B, N, 4] float32 normalized xyxy
+      scores  [B, N] float32, the winning class score after per-class NMS
+      classes [B, N] int32, the winning class
+      valid   [B, N] bool (score > OBJ_THRESHOLD)
+    """
+    return infer_yolo_from_callables(net.trunk, images, config)
+
+
+def infer_yolo_from_callables(trunk, images, config):
+    """infer_yolo_outputs with a pluggable trunk executor (images → (grid,
+    fmap)), shared by the float path and the int8 path
+    (quant.QuantizedDetector.infer_yolo_fn).
+
+    INFER_YOLO_PER_CLASS_K compacts each class to its own top-K boxes before
+    the greedy chain; INFER_YOLO_TOP_N runs the NMS on the N boxes with the
+    highest max-class probability; the per-class K takes precedence. Both
+    give the full-grid result while no more boxes pass OBJ_THRESHOLD than
+    they keep (boxes below it carry all-zero probabilities, which neither
+    suppress nor survive)."""
+    grid, _ = trunk(images_f32(images))
+    grid = grid.float()
+    boxes = decode_yolo_proposals(grid, config.anchors_wh, config.GRID_H, config.GRID_W)
+    b, c = grid.shape[0], config.NUM_CLASSES
+    conf = torch.sigmoid(grid[..., 4])   # jax.nn.sigmoid there
+    n_top = int(getattr(config, "INFER_YOLO_TOP_N", 0) or 0)
+    k_cls = int(getattr(config, "INFER_YOLO_PER_CLASS_K", 0) or 0)
+
+    # conf-weighted class probabilities, thresholded; the softmax's shift is
+    # by each image's own maximum
+    probs = conf[..., None] * reference_softmax(grid[..., 5:], batch_dims=1)
+    probs = (probs * (probs > config.OBJ_THRESHOLD)).reshape(b, -1, c)
+    n = probs.shape[1]
+    if k_cls and k_cls < n:
+        probs = per_class_topk_nms(boxes, probs, k_cls, config.NMS_THRESHOLD)
+    elif n_top and n_top < n:
+        _, idx = _top_k(probs.amax(dim=-1), n_top)
+        kept = class_aware_nms(_take(boxes, idx), _take(probs, idx), config.NMS_THRESHOLD)
+        probs = torch.zeros_like(probs).scatter_(
+            1, idx[..., None].expand(b, n_top, c), kept)
+    else:
+        probs = class_aware_nms(boxes, probs, config.NMS_THRESHOLD)
+    scores, classes = first_argmax(probs)
+    return {"boxes": boxes, "scores": scores, "classes": classes.to(torch.int32),
+            "valid": scores > config.OBJ_THRESHOLD}
 
 
 def detect_outputs(net, images, config):

@@ -499,8 +499,23 @@ class QuantizedDetector:
     def finetune(self, *args, **kwargs):
         raise NotImplementedError("quantization-aware finetune " + _NOT_PORTED.format(10))
 
-    def infer_yolo_fn(self):
-        raise NotImplementedError("infer_yolo " + _NOT_PORTED.format(6))
+    def infer_yolo_fn(self, fused_ds: bool | None = None):
+        """images → infer_yolo outputs on the int8 trunk (fused_ds None:
+        QUANT_FUSED_DS runs the stride-1 DS blocks as K1): the
+        detection-only counterpart of detect_fn. The grid comes back f32;
+        decode and the per-class NMS stay f32."""
+        config = self.config
+
+        def infer_yolo(images):
+            return pipelines.infer_yolo_from_callables(
+                lambda x: self.trunk(x, fused_ds=fused_ds), images, config)
+
+        return infer_yolo
+
+    @torch.inference_mode()
+    def infer_yolo_outputs(self, images, fused_ds: bool | None = None):
+        """Same contract as pipelines.infer_yolo_outputs, int8 trunk."""
+        return self.infer_yolo_fn(fused_ds)(images)
 
     def trunk(self, images, quant: bool = True, fused_ds: bool | None = None):
         """images [B, H, W, 3] float in [0, 1] → (grid [B, gh, gw, nb, 5+C]

@@ -1,17 +1,16 @@
-"""Host-side image utilities (numpy) — a copy of `mask_yolo_tpu/utils/image.py`
-with its numpy paths only.
+"""Host-side image utilities (numpy) — a copy of `mask_yolo_tpu/utils/image.py`.
 
-The JAX package switches to host C++ twins (`mask_yolo_tpu/native/`) when
-they build; its own tests hold them bit-equal to these numpy versions. The
-C++ twins are not ported yet (ROADMAP Queue 1, augmentation, pooled data
-workers and native image ops).
 Resize (skimage semantics), nearest-neighbour mask zoom (scipy semantics),
-and the rasterizers the Shapes dataset draws with.
+and the rasterizers the Shapes dataset draws with. Each switches to its host
+C++ twin (`native/`) when that builds; the tests hold the twins bit-equal to
+the numpy versions here.
 """
 
 from __future__ import annotations
 
 import numpy as np
+
+from .. import native as _native
 
 
 def _resize_coords(out_size: int, in_size: int, align_corners: bool = False):
@@ -34,6 +33,12 @@ def resize_bilinear(image: np.ndarray, output_shape, align_corners: bool = False
     out_h, out_w = int(output_shape[0]), int(output_shape[1])
     if (in_h, in_w) == (out_h, out_w):
         return image.astype(np.float32, copy=True)
+
+    if _native.available():
+        if image.ndim == 2:
+            return _native.resize_bilinear_f32(image[:, :, None], out_h,
+                                               out_w, align_corners)[:, :, 0]
+        return _native.resize_bilinear_f32(image, out_h, out_w, align_corners)
 
     ys = np.clip(_resize_coords(out_h, in_h, align_corners), 0, in_h - 1)
     xs = np.clip(_resize_coords(out_w, in_w, align_corners), 0, in_w - 1)
@@ -68,6 +73,8 @@ def resize_nearest(mask: np.ndarray, zoom):
     out_w = int(round(in_w * zoom[1]))
     if (out_h, out_w) == (in_h, in_w):
         return mask.copy()
+    if _native.available():
+        return _native.resize_nearest(mask, out_h, out_w)
     # scipy order=0: coordinate mapping in_coord = out_coord * (in/out), rounded
     ys = np.clip(np.round(np.arange(out_h) * (in_h / out_h)).astype(np.int64), 0, in_h - 1)
     xs = np.clip(np.round(np.arange(out_w) * (in_w / out_w)).astype(np.int64), 0, in_w - 1)
@@ -116,8 +123,11 @@ def fill_rectangle(image: np.ndarray, x0: int, y0: int, x1: int, y1: int, color)
 def fill_circle(image: np.ndarray, cx: int, cy: int, radius: int, color):
     """Filled circle: pixels whose centers are within `radius` (inclusive)."""
     h, w = image.shape[:2]
-    yy, xx = np.ogrid[:h, :w]
-    mask = (xx - int(cx)) ** 2 + (yy - int(cy)) ** 2 <= int(radius) ** 2
+    if _native.available():
+        mask = _native.circle_mask((h, w), cx, cy, radius)
+    else:
+        yy, xx = np.ogrid[:h, :w]
+        mask = (xx - int(cx)) ** 2 + (yy - int(cy)) ** 2 <= int(radius) ** 2
     image[mask] = color
     return image
 
@@ -139,6 +149,8 @@ def polygon_mask(xs, ys, shape) -> np.ndarray:
     h, w = shape
     xs = np.asarray(xs, dtype=np.float64)
     ys = np.asarray(ys, dtype=np.float64)
+    if _native.available() and len(xs) >= 3:
+        return _native.polygon_mask(xs, ys, (h, w))
     n = len(xs)
     mask = np.zeros((h, w), dtype=bool)
     if n < 3:

@@ -124,3 +124,47 @@ def test_grid_sample_yardstick_gradient_is_the_crop_backward(rng, pool, hw):
     tol = 1e-5 * want.abs().max().item()
     np.testing.assert_allclose(got.numpy(), want.numpy(), atol=tol, rtol=0)
     np.testing.assert_allclose(again().numpy(), want.numpy(), atol=tol, rtol=0)
+
+
+@pytest.mark.parametrize("hw, c, pool", [(None, None, None), ((9, 13), 6, 4), ((12, 12), 16, 65),
+                                         ((6, 70), 10, 14)],
+                         ids=["tiny", "C6", "P65", "wide-C10"])
+def test_bf16_backward_plain_version_matches_jax_bf16_gradient(rng, hw, c, pool):
+    """`crop_rois_backward` on a bf16 gradient (the plain version on the CPU:
+    `crop_and_resize_backward` on the upcast gradient, rounded once) against
+    jax.vjp of the JAX crop in bf16, at TinyConfig's shape and at widths the
+    CUDA gather does not take (C % 4 != 0, P > 64). The JAX gradient rounds
+    its bf16 interpolation weights and its intermediate, the port sums in
+    f32 and rounds once: within 3e-2 of the gradient's scale (CROP_TOL's
+    bf16 limit; a bf16 ULP is 2^-8 of a value and a few add up), and within
+    one bf16 ULP of the largest value of the f32 backward rounded to bf16."""
+    b, h, w, tiny_c, k, tiny_pool = _tiny_shape()
+    h, w = hw or (h, w)
+    c, pool = c or tiny_c, pool or tiny_pool
+    bx = _boxes(rng, b, k)
+    g = T(rng.randn(b, k, pool, pool, c).astype(np.float32)).bfloat16()
+    fmap = jnp.asarray(rng.randn(b, h, w, c).astype(np.float32), jnp.bfloat16)
+    _, vjp = jax.vjp(lambda f: jroi.crop_and_resize(f, jnp.asarray(bx), (pool, pool),
+                                                    dtype=jnp.bfloat16), fmap)
+    want = np.asarray(vjp(jnp.asarray(g.float().numpy(), jnp.bfloat16))[0].astype(jnp.float32))
+    got = roi_crop.crop_rois_backward(g, T(bx), (h, w))
+    assert got.dtype == torch.bfloat16 and tuple(got.shape) == (b, h, w, c)
+    scale = np.abs(want).max()
+    np.testing.assert_allclose(got.float().numpy(), want, atol=3e-2 * scale, rtol=0)
+    f32 = roi_align.crop_and_resize_backward(g.float(), T(bx), (h, w))
+    assert torch.equal(got, f32.bfloat16())
+
+
+@pytest.mark.parametrize("c, pool", [(6, 4), (16, 65), (3, 1)], ids=["C6", "P65", "C3-P1"])
+def test_f32_backward_takes_every_width(rng, c, pool):
+    """C not a multiple of 4 and P > 64 through the wrapper (plain version
+    here; the card sends them to the kernel's one-thread-per-value path):
+    equal to jax.vjp's gradient to 1e-5 of its scale."""
+    b, h, w, _, k, _ = _tiny_shape()
+    bx = _boxes(rng, b, k)
+    g = rng.randn(b, k, pool, pool, c).astype(np.float32)
+    _, vjp = jax.vjp(lambda f: jroi.crop_and_resize(f, jnp.asarray(bx), (pool, pool)),
+                     jnp.zeros((b, h, w, c), jnp.float32))
+    want = np.asarray(vjp(jnp.asarray(g))[0])
+    got = roi_crop.crop_rois_backward(T(g), T(bx), (h, w)).numpy()
+    np.testing.assert_allclose(got, want, atol=1e-5 * np.abs(want).max(), rtol=0)

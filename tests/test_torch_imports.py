@@ -56,3 +56,25 @@ TRAINING_SLICE = ("losses", "ops.target_assign", "train.state", "train.trainer",
 @pytest.mark.parametrize("name", TRAINING_SLICE)
 def test_training_slice_module_is_covered(name):
     assert ROOT / "mask_yolo_tpu_torch" / (name.replace(".", "/") + ".py") in PORT_FILES
+
+
+# the modules of the infer_yolo, augmentation and evaluation paths
+USER_PATHS_SLICE = ("ops.nms", "utils.host_ops", "utils.metrics", "evaluate", "data.augment",
+                    "native.__init__")
+
+
+@pytest.mark.parametrize("name", USER_PATHS_SLICE)
+def test_user_paths_module_is_covered(name):
+    assert ROOT / "mask_yolo_tpu_torch" / (name.replace(".", "/") + ".py") in PORT_FILES
+
+
+def test_importing_the_port_builds_nothing_and_starts_no_process():
+    """The native image library is built at first use, not at import."""
+    code = ("import subprocess, sys\n"
+            "def refuse(*a, **k): raise AssertionError('a process was started at import')\n"
+            "subprocess.run = subprocess.Popen = refuse\n"
+            "import mask_yolo_tpu_torch.native, mask_yolo_tpu_torch.utils.image\n"
+            "import mask_yolo_tpu_torch.evaluate, mask_yolo_tpu_torch.data.pipeline\n")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
+                          text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr

@@ -164,32 +164,38 @@ def _mask_graph(rng, cf, co, nc):
             + [layer("mask_deconv", (1, 1, co, 4 * co)), layer("mask_out", (1, 1, 4 * co, 4 * nc))]}
 
 
-@pytest.mark.parametrize("cf, co, nc", [(16, 256, 4), (256, 256, 4), (256, 256, 81)],
-                         ids=["tiny", "shapes", "coco"])
+@pytest.mark.parametrize("cf, co, nc", [(16, 256, 4), (16, 16, 4), (256, 256, 4),
+                                        (256, 256, 81)],
+                         ids=["tiny", "narrow", "shapes", "coco"])
 def test_mask_pack_unpacks_to_the_plain_operands(cf, co, nc):
-    """K3's packed GEMM weights are [N, K rounded up to 128] int8, chunk c
-    of a row's 128-byte block at chunk c ^ (n % 8), zero past K; they unpack
-    to exactly the im2col matrices the plain version multiplies by."""
+    """K3's packed GEMM weights are [256, 9 x (Cin rounded up to 128)] int8
+    (the kernel's tile widths), chunk c of a row's 128-byte block at chunk
+    c ^ (n % 8), zero in the padded channels; cut to the true widths they
+    unpack to exactly the im2col matrices of the graph."""
     rng = np.random.default_rng(cf + nc)
     graph = _mask_graph(rng, cf, co, nc)
     packed = mask_fused.pack_mask_weights(graph, nc)
     layers = graph["mask"]
     want = {"w1": layers[0].w_q.reshape(9 * cf, co), "wd": layers[4].w_q.reshape(co, 4 * co)}
     want.update({f"w{i}": layers[i - 1].w_q.reshape(9 * co, co) for i in (2, 3, 4)})
-    kp1 = -(-9 * cf // 128) * 128
-    assert packed["w1"].shape == (co, kp1) and packed["wd"].shape == (4 * co, co)
-    plain = mask_fused.unpack_mask_weights(mask_fused.weights_to(packed, "cpu"), cf)
+    cfp = -(-cf // 128) * 128
+    assert packed["w1"].shape == (256, 9 * cfp) and packed["wd"].shape == (4 * 256, 256)
+    plain = mask_fused.unpack_mask_weights(mask_fused.weights_to(packed, "cpu"), cf, co)
     for key, w in want.items():
         assert packed[key].dtype == np.int8 and packed[key].flags.c_contiguous
         np.testing.assert_array_equal(plain[key].numpy(), w, err_msg=key)
-    rows = want["w2"].T                       # [N, K], the unswizzled order
+    padded = mask_fused.unpack_mask_weights(mask_fused.weights_to(packed, "cpu"))
+    rows = padded["w2"].numpy().T             # [N, K], the unswizzled order
     for n in (0, 5, 13, 255):
         for c in range(16):
             block, chunk = divmod(c, 8)
             at = 128 * block + 16 * (chunk ^ (n % 8))
             np.testing.assert_array_equal(packed["w2"][n, at:at + 16], rows[n, 16 * c:16 * c + 16])
-    unswizzled = mask_fused.unswizzle_nk(torch.tensor(packed["w1"]), kp1).t().numpy()
-    assert not unswizzled[:, 9 * cf:].any()
+    w1 = padded["w1"].numpy().reshape(9, cfp, 256)
+    assert not w1[:, cf:].any() and not w1[:, :, co:].any()
+    assert not padded["wd"].numpy().reshape(256, 4, 256)[co:].any()
+    assert not packed["wsc"].reshape(5, 4, 256)[:, :, co:].any()
+    assert not packed["bias"][:5].reshape(5, 4, 256)[:, :, co:].any()
 
 
 @pytest.mark.parametrize("bad", ["unpacked_layout", "dtype", "non_contiguous", "wd_shape"])
@@ -269,3 +275,53 @@ def test_mask_pack_refuses_vector_scales(mask_setup):
     graph["mask"][2].a_scale = np.full(256, 0.01, np.float32)
     with pytest.raises(NotImplementedError, match="per-tensor"):
         mask_fused.pack_mask_weights(graph, JaxQ.NUM_CLASSES)
+
+
+@pytest.mark.parametrize("cf, co", [(16, 16), (16, 256), (200, 64)], ids=["narrow", "tiny", "Cf200"])
+def test_mask_branch_zero_padding_changes_nothing(cf, co):
+    """The packed weights carry zero channels up to the kernel's tiles (Cf to
+    a multiple of 128, co to 256). The plain version, which multiplies by
+    the padded matrices as the kernel does, gives exactly the masks of the
+    same arithmetic written at the true widths: zero int8 channels add
+    nothing to an int32 product, and a padded output channel stays 0."""
+    from mask_yolo_tpu_torch.ops.int8 import int_mm, quantize
+    from mask_yolo_tpu_torch.ops.roi_align import crop_and_resize
+
+    rng = np.random.default_rng(cf + co)
+    nc, pool, b, k = 4, 4, 2, 5
+    graph = _mask_graph(rng, cf, co, nc)
+    for layer in graph["mask"]:
+        layer.w_scale = (layer.w_scale / 30).astype(np.float32)    # keep activations in range
+    layers = graph["mask"]
+    packed = mask_fused.weights_to(mask_fused.pack_mask_weights(graph, nc), "cpu")
+    fmap = torch.tensor(rng.standard_normal((b, 8, 8, cf)).astype(np.float32))
+    boxes = torch.tensor(_boxes(np.random.RandomState(1), b, k))
+    classes = torch.tensor(rng.integers(0, nc, (b, k)), dtype=torch.int32)
+    got = mask_fused.fused_mask_branch(fmap, boxes, classes, packed, pool, nc)
+
+    asc = [float(np.float32(l.a_scale)) for l in layers]
+    x_q = quantize(crop_and_resize(fmap.bfloat16(), boxes, (pool, pool)).float()
+                   .reshape(b * k * pool * pool, cf), asc[0])
+    for li in range(4):
+        w = torch.tensor(layers[li].w_q.reshape(-1, co))
+        acc = mask_fused._conv3x3_rois(x_q, w, pool)
+        y = torch.relu(acc.float() * (torch.tensor(layers[li].w_scale) * asc[li])
+                       + torch.tensor(layers[li].bias))
+        x_q = quantize(y, asc[li + 1])
+    acc = int_mm(x_q, torch.tensor(layers[4].w_q.reshape(co, 4 * co)))
+    y = torch.relu(acc.float() * (torch.tensor(layers[4].w_scale) * asc[4])
+                   + torch.tensor(layers[4].bias))
+    yb = quantize(y, asc[5]).to(torch.bfloat16) * torch.tensor(asc[5], dtype=torch.bfloat16)
+    wo = torch.tensor(layers[5].kernel.reshape(4 * co, 4 * nc)).bfloat16().float()
+    probs = torch.sigmoid(yb.float() @ wo + torch.tensor(layers[5].bias))
+    probs = probs.reshape(b * k, pool * pool, 4, nc)
+    sel = torch.gather(probs, -1, classes.reshape(-1).long()[:, None, None, None].expand(
+        -1, pool * pool, 4, 1))[..., 0].bfloat16().float()
+    want = sel.reshape(b, k, pool, pool, 2, 2).permute(0, 1, 2, 4, 3, 5).reshape(
+        b, k, 2 * pool, 2 * pool)
+    assert (want - 0.5).abs().mean() > 0.02        # the masks spread
+    # the f32 class conv sums 4·co against 4·256 terms (the extra ones zero),
+    # possibly grouped otherwise: at most one bf16 ULP (2^-8) on a few values
+    diff = (got - want).abs()
+    assert diff.max() <= 2.0 ** -8 and (diff > 0).float().mean() < 1e-2
+    print(f"padded vs true width: {int((diff > 0).sum())} of {diff.numel()} mask values differ")

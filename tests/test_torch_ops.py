@@ -201,8 +201,13 @@ def test_crop_autograd_wiring_on_cpu(rng):
     assert bx.grad is None
     want = roi_align.crop_and_resize_backward(g, bx.detach(), (10, 12))
     assert torch.equal(fmap.grad, want)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        crop_rois(fmap.detach().bfloat16().requires_grad_(), bx.detach(), 4)
+    # a bf16 fmap trains too: the plain backward on the upcast gradient,
+    # rounded once
+    fmap16 = fmap.detach().bfloat16().requires_grad_()
+    crop_rois(fmap16, bx.detach(), 4).backward(g.bfloat16())
+    assert fmap16.grad.dtype == torch.bfloat16
+    assert torch.equal(fmap16.grad, roi_align.crop_and_resize_backward(
+        g.bfloat16().float(), bx.detach(), (10, 12)).bfloat16())
     with pytest.raises(ValueError):
         crop_rois_backward(g, bx.detach()[:, :3].contiguous(), (10, 12))
 

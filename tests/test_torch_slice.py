@@ -179,10 +179,11 @@ def test_model_refuses_cuda_without_a_gpu(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         MaskYOLO("inference", PortTiny(), device="cuda")
-    # training is ported in f32; bf16 training raises, naming its ROADMAP item
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        MaskYOLO("training", type("Bf16", (PortTiny,), {"COMPUTE_DTYPE": "bfloat16"})(),
-                 device="cpu")
+    # a bf16 training model holds f32 masters and computes in bf16
+    bf16 = MaskYOLO("training", type("Bf16", (PortTiny,), {"COMPUTE_DTYPE": "bfloat16"})(),
+                    device="cpu").net
+    assert {p.dtype for p in bf16.parameters()} == {torch.float32}
+    assert bf16.backbone.conv1.conv.compute_dtype == torch.bfloat16
     with pytest.raises(ValueError):
         MaskYOLO("serving", PortTiny(), device="cpu")
     with pytest.raises(NotImplementedError, match="resnet50_fpn"):

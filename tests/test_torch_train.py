@@ -30,6 +30,17 @@ a relative 1e-7 moves its own gradients by a median 0.9 % of each leaf's max
     BatchNorm layer alone is held to rel 1e-5 in
     test_batchnorm_layer_matches_flax.
 Parameters are within 1e-6 of optax after 3 updates on identical gradients.
+
+bf16 (COMPUTE_DTYPE "bfloat16" on f32 master weights), BatchNorm on running
+statistics: the loss agrees with JAX's bf16 loss to rel 1e-4 (measured
+1e-7), but a bf16 gradient is noisy in itself: JAX's own bf16 gradient is at
+cosine 0.9991 to JAX's f32 gradient, with single leaves off by half their
+max (one bf16 rounding that lands on the other side of a relu6 bound or a
+0.5 ULP tie flips a whole activation's gradient). The port's bf16 gradient
+is as close to JAX's bf16 one as that allows: whole-gradient cosine >= 0.998
+(measured 0.9989), every leaf at cosine >= 0.9 (measured min 0.92), and no
+farther from JAX's bf16 gradient than 1.5 x the distance between JAX's own
+bf16 and f32 gradients.
 """
 
 import json
@@ -162,6 +173,108 @@ def test_loss_and_gradients_match_jax(variables, cfg_cls, mode):
         np.testing.assert_allclose(metrics[k].item(), float(w), rtol=1e-5, atol=1e-7,
                                    err_msg=k)
     assert_leaves_close(grads, jgrads, 1e-4, "grad")
+
+
+def test_bf16_step_matches_jax_on_f32_masters(variables):
+    """One bf16 training forward and backward (see the module docstring for
+    the limits): f32 masters get f32 gradients, the loss and the gradients
+    agree with the JAX package's bf16 network on the same f32 parameters,
+    and one optimizer step moves the masters and keeps them f32."""
+    _, v = variables
+    jcfg = type("Bf16", (frozen_bn(MiniTopTiny),), {"COMPUTE_DTYPE": "bfloat16"})()
+    cfg = port_config(jcfg)
+    batch = batches(cfg)[0]
+    jgrads = {}
+    for dtype in ("bfloat16", "float32"):
+        net = JaxNet(num_classes=jcfg.NUM_CLASSES, n_box=jcfg.N_BOX,
+                     top_feature_map_depth=jcfg.TOP_FEATURE_MAP_DEPTH,
+                     mask_pool_size=jcfg.MASK_POOL_SIZE, compute_dtype=dtype)
+
+        def jloss(params, net=net):
+            return jpipelines.training_loss(
+                net, {"params": params, "batch_stats": v["batch_stats"]},
+                {k: jnp.asarray(x) for k, x in batch.items()}, jcfg, seen=0.0, train=True)
+
+        (jl, _), jgrads[dtype] = jax.value_and_grad(jloss, has_aux=True)(v["params"])
+        if dtype == "bfloat16":
+            want = float(jl)
+    model = port_model(cfg, v)
+    params = dict(model.net.named_parameters())
+    assert {p.dtype for p in params.values()} == {torch.float32}
+    assert model.net.mask.mask_conv1.compute_dtype == torch.bfloat16
+    loss, metrics = pipelines.training_loss(model.net, tensors(batch), cfg, 0.0, train=True)
+    assert metrics["myolo_mask_loss"].item() > 0 and loss.dtype == torch.float32
+    np.testing.assert_allclose(loss.item(), want, rtol=1e-4)
+    raw = torch.autograd.grad(loss, list(params.values()))
+    assert {g.dtype for g in raw} == {torch.float32}
+    grads = grads_as_flax(params, raw)
+
+    def flat(tree):
+        return np.concatenate([np.ravel(x) for x in jax.tree_util.tree_leaves(tree)])
+
+    def cosine(a, b):
+        return float(a @ b / np.linalg.norm(a) / np.linalg.norm(b))
+
+    g, j16, j32 = flat(grads), flat(jgrads["bfloat16"]), flat(jgrads["float32"])
+    assert cosine(g, j16) >= 0.998, cosine(g, j16)
+    assert np.linalg.norm(g - j16) <= 1.5 * np.linalg.norm(j16 - j32)
+    got_leaves = dict(jax.tree_util.tree_leaves_with_path(grads))
+    for path, w in jax.tree_util.tree_leaves_with_path(jgrads["bfloat16"]):
+        leaf = cosine(np.ravel(got_leaves[path]), np.ravel(w))
+        assert leaf >= 0.9, (jax.tree_util.keystr(path), leaf)
+
+    before = {k: p.detach().clone() for k, p in params.items()}
+    tx = state.make_optimizer(1e-3, cfg, params)
+    st = state.create_train_state(model.net, tx)
+    st, _ = trainer.make_train_step(cfg, tx)(st, tensors(batch))
+    assert all(p.dtype == torch.float32 for p in st.params.values())
+    assert all(m.dtype == torch.float32 for m in st.opt_state["mu"].values())
+    moved = [k for k, p in st.params.items() if not torch.equal(p, before[k])]
+    assert len(moved) == len(before)
+    # an update far below a bf16 ULP of the weight still lands in the master
+    k = "backbone.conv1.conv.weight"
+    step = (st.params[k] - before[k]).abs().max().item()
+    assert 0 < step <= 1.01e-3 and not torch.equal(st.params[k].bfloat16(), st.params[k])
+
+
+def test_bf16_train_checkpoints_f32_masters_and_resumes_exactly(tmp_path):
+    """MaskYOLO.train in bf16: checkpoints hold the f32 masters, the host
+    copy reads them, and resume_from restores params, statistics and
+    moments exactly."""
+    cfg = port_config(ShapesTiny(), COMPUTE_DTYPE="bfloat16", STEPS_PER_EPOCH=2,
+                      VALIDATION_STEPS=1)
+    train_ds, val_ds = shapes(4), shapes(2, seed=3)
+    kept = {}
+
+    def keep(epoch, metrics, val_loss, st):
+        kept[epoch] = ({k: p.detach().clone() for k, p in st.params.items()},
+                       {k: m.clone() for k, m in st.opt_state["mu"].items()}, st.step)
+
+    model = MaskYOLO("training", cfg, model_dir=str(tmp_path), seed=0, device="cpu")
+    model.train(train_ds, val_ds, 1e-3, epochs=2, verbose=False, custom_callbacks=[keep])
+    ckpts = sorted(p for p in os.listdir(tmp_path) if p.startswith("saved_model_"))
+    first = state.load_checkpoint(str(tmp_path / ckpts[0]))
+    assert {p.dtype for p in first["params"].values()} == {torch.float32}
+    for k, p in kept[0][0].items():
+        assert torch.equal(first["params"][k], p), k
+    np.testing.assert_array_equal(model._host_state["feature_map.weight"],
+                                  kept[1][0]["feature_map.weight"].numpy())
+
+    fresh = MaskYOLO("training", cfg, seed=5, device="cpu")
+    tx = state.make_optimizer(1e-3, cfg, dict(fresh.net.named_parameters()))
+    st, epoch = state.resume_train_state(str(tmp_path / ckpts[0]),
+                                         state.create_train_state(fresh.net, tx), tx)
+    assert epoch == 1 and st.step == kept[0][2]
+    for k, p in kept[0][0].items():
+        assert torch.equal(st.params[k], p), k
+    for k, m in kept[0][1].items():
+        assert torch.equal(st.opt_state["mu"][k], m), k
+    # an inference model casts the masters to its compute dtype on load
+    infer = MaskYOLO("inference", cfg, device="cpu")
+    infer.load_weights(str(tmp_path / ckpts[1]))
+    w = infer.net.feature_map.weight
+    assert w.dtype == torch.bfloat16
+    assert torch.equal(w, kept[1][0]["feature_map.weight"].bfloat16())
 
 
 @pytest.mark.parametrize("n", [8, 128])
@@ -454,6 +567,8 @@ def test_training_weights_follow_flax_default_init():
 @pytest.mark.parametrize("what", ["bf16", "augmentation", "data_workers", "profile_dir",
                                   "resnet50_fpn", "keras_h5", "data_parallel"])
 def test_held_out_options_raise_naming_their_roadmap_item(tmp_path, what):
+    """What is still held out raises, naming its ROADMAP item; bf16 training,
+    augmentation, data workers and profiler traces are ported and run."""
     cfg = port_config(ShapesTiny())
     ds = shapes(2)
 
@@ -478,5 +593,8 @@ def test_held_out_options_raise_naming_their_roadmap_item(tmp_path, what):
                                      device="cpu"),
         "data_parallel": lambda: train(DATA_PARALLEL=2),
     }
+    if what in ("bf16", "augmentation", "data_workers", "profile_dir"):
+        cases[what]()   # (a one-step epoch ends before the profiler's window opens)
+        return
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         cases[what]()

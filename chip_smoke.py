@@ -8,6 +8,19 @@
                                    # flip-only augmentation, AP callback every 5
                                    # epochs) in f32 and in bf16 and evaluate on
                                    # 50 held-out images (box and mask AP50)
+    python3 chip_smoke.py --int8-quality
+                                   # instead of the phases: generate DenseShapes
+                                   # (80 classes, 416²) from a seed, round-trip
+                                   # its annotations through data/coco.py's RLE
+                                   # JSON, train CocoStyleConfig (300 train, 32
+                                   # val images, 25 epochs, batch 16, lr 1e-3),
+                                   # then evaluate 64 held-out images in f32
+                                   # weights and in four int8 forms: pt (per
+                                   # tensor), pc (per-channel scales), pc_qat
+                                   # (+ 200 finetune steps on 16 calibration
+                                   # images), pc_qat_mw (mask term x4);
+                                   # --train-images N --epochs N set another
+                                   # training budget
     python3 chip_smoke.py --parent-csrc DIR
                                    # also build whichever of crop_rois.cu,
                                    # fused_ds_block.cu and fused_mask_branch.cu DIR
@@ -87,6 +100,23 @@ Phases, each fatal on failure (nothing is caught):
                  profile_dir=) with DATA_WORKERS 2 leaves a trace
  E1. evaluate    evaluate_dataset on the model T2 trained, and the AP callback
                  with every=1 inside D1's train: every metric finite, in [0, 1]
+ Q1. kernel      K3 on graphs calibrated with QUANT_PER_CHANNEL_ACT and
+                 bias-corrected (vector activation scales folded into the int8
+                 weights, bias_corr in the packed bias) vs its plain version at
+                 the 224² shape (B=16, K=10, 28x28x256, nc 4) and at
+                 CocoStyleConfig's (B=3, K=48, 52x52x256, nc 81), within phase
+                 8's bounds; its time beside the scalar graph's, the bound and
+                 torch._int_mm
+ Q2. 416² slice  MaskYOLO("inference", Coco416Config) at full width (bf16, 81
+                 classes, K=100, MASK_TOP_K 48) on 16 seeded DenseShapes images:
+                 detect_batch float (exactly 1 K2 launch) and, after quantize,
+                 int8 per tensor (10 K1, 1 K3, 0 K2), per channel + bias
+                 correction, and that + 30 finetune steps (0 K1: K1 takes
+                 scalar scales only, its pairs run as chained layers; 1 K3, 0
+                 K2); each fused result held against the same detector's
+                 chained layers; the finetune's loss not above its start, its
+                 crop through K2 forward and backward; ms per batch and its
+                 split into trunk, mask branch and the rest (recorded)
 
 The last three lines are the `nvidia-smi` name/power-limit line, a JSON line
 of kernels (times, launches per path, bounds), and {"ok": true, "device":
@@ -128,6 +158,8 @@ from torch.profiler import ProfilerActivity, profile
 from mask_yolo_tpu_torch import (CocoStyleConfig, MaskYOLO, evaluate_dataset,
                                  make_ap_eval_callback, native, quant)
 from mask_yolo_tpu_torch.data import augment
+from mask_yolo_tpu_torch.data.coco import CocoDataset, dataset_to_coco_json
+from mask_yolo_tpu_torch.data.dense_shapes import DenseShapesDataset
 from mask_yolo_tpu_torch.data.pipeline import BatchGenerator, data_generator, preload_dataset
 from mask_yolo_tpu_torch.data.prefetch import to_device
 from mask_yolo_tpu_torch.data.shapes import ShapesConfig, ShapesDataset
@@ -172,6 +204,7 @@ DS_224 = [(112, 112, 32, 64, True), (56, 56, 64, 128, True), (28, 28, 256, 256, 
 DS_416 = [(208, 208, 32, 64, True), (104, 104, 64, 128, True), (52, 52, 256, 256, True),
           (52, 52, 256, 512, False), (26, 26, 512, 512, True), (13, 13, 1024, 1024, True)]
 K1_LAUNCHES, K3_LAUNCHES = 10, 1   # per int8 detect_batch
+COCO_BATCH, COCO_CALIB, COCO_QAT_STEPS = 16, 8, 30   # Q2
 THROUGHPUT_BATCH = 128
 HBM_BYTES_S = 3.35e12              # the H100 SXM's peaks (module docstring)
 PEAK_OPS_S = {"int8": 1979e12, "bf16": 989e12, "f32": 67e12}
@@ -214,8 +247,22 @@ class TrainConfig(ShapesConfig):
 
 
 class Coco416Config(CocoStyleConfig):
+    """CocoStyleConfig (416², 13x13x5 grid, 81 classes, K=100, MASK_TOP_K 48,
+    bf16; int8 depthwise convs by default at this size) with K1 and K3."""
     QUANT_FUSED_DS = True
     QUANT_FUSED_MASK = True
+
+
+class Int8PcConfig(Int8Config):
+    """Int8Config calibrated per channel and bias-corrected."""
+    QUANT_PER_CHANNEL_ACT = True
+    QUANT_BIAS_CORRECT = True
+
+
+class Coco416PcConfig(Coco416Config):
+    """Coco416Config calibrated per channel and bias-corrected."""
+    QUANT_PER_CHANNEL_ACT = True
+    QUANT_BIAS_CORRECT = True
 
 
 class TrainBf16Config(TrainConfig):
@@ -638,9 +685,16 @@ class ParentKernels:
 
     @staticmethod
     def mask_weights(w, cf):
-        """The current packed weights in the parent's layout."""
+        """The current packed weights of a per-tensor graph in the parent's
+        layout: plain GEMM matrices, six scalar activation scales (the
+        inverse of each asc row's first entry, so to within a rounding) and
+        weight scales without the input scale."""
         old = dict(w)
         old.update({k: v.contiguous() for k, v in unpack_mask_weights(w, cf).items()})
+        asc = w["asc"][:, 0].cpu().numpy()
+        old["asc"] = np.append(1.0 / asc[:5], asc[6]).astype(np.float32)
+        old["wsc"] = (w["wsc"] / torch.as_tensor(old["asc"][:5], device=w["wsc"].device)[:, None]
+                      ).contiguous()
         return old
 
     def mask_branch(self, fmap, boxes, classes, w_old, pool, nc):
@@ -1380,7 +1434,7 @@ def phase_infer_yolo(dev, rng, smi, cfg, cfg8, counts):
     one = images[0].cpu().numpy()
 
     # the float path: MaskYOLO.infer_yolo on one image, the pipeline on the batch
-    boxes = run_main_path(lambda: model.infer_yolo(one), counts, expect=())
+    boxes = run_main_path(lambda: model.infer_yolo(one, display=False), counts, expect=())
     out = model._infer_yolo_batch(images)
     check_infer_outputs(out, THROUGHPUT_BATCH, cfg)
     if not all(isinstance(b, BoundBox) for b in boxes) or not out["valid"].any() \
@@ -1399,7 +1453,7 @@ def phase_infer_yolo(dev, rng, smi, cfg, cfg8, counts):
     out8 = run_main_path(lambda: model8._infer_yolo_batch(images), counts, ("fused_ds_block",))
     check_infer_outputs(out8, THROUGHPUT_BATCH, cfg8)
     n1, n2, n3 = (counts[k][-1] for k in ("fused_ds_block", "crop_rois", "fused_mask_branch"))
-    boxes8 = model8.infer_yolo(one)
+    boxes8 = model8.infer_yolo(one, display=False)
     chained = model8._qdet.infer_yolo_outputs(images, fused_ds=False)
     same = {k: torch.equal(out8[k], chained[k]) for k in ("classes", "valid")}
     close = (out8["boxes"] - chained["boxes"]).abs().max().item()
@@ -1544,6 +1598,254 @@ def phase_data_and_evaluate(dev, smi, trained, counts, workdir):
     check_metrics("make_ap_eval_callback(every=1) after D1's epoch", cb.history[0])
 
 
+# ---- phases Q1-Q2: the int8 quality tools and the 416² slice ------------------
+
+
+def phase_k3_vector_scales(rng, dev, k3_scalar):
+    """Q1: K3 on per-channel, bias-corrected graphs against its plain version
+    at the 224² and the 416² shape, timed beside the scalar graph's call of
+    phase 8 (`k3_scalar`). Returns the 224² result with the 416² one under
+    "416"."""
+    res = {}
+    cfg224, cfg416 = Int8PcConfig(), Coco416PcConfig()
+    for cfg, b, k, tag, scalar in (
+            (cfg224, BATCH, cfg224.DETECTION_MAX_INSTANCES, "224 per-channel", k3_scalar),
+            (cfg416, 3, cfg416.MASK_TOP_K, "416 per-channel", k3_scalar["416"])):
+        model = quantized_model(cfg, dev)
+        layers = model._qdet.graph["mask"]
+        if not all(isinstance(l.a_scale, np.ndarray) for l in layers) or not all(
+                l.act_folded and l.bias_corr is not None for l in layers[:5]):
+            raise AssertionError("the graph is not per-channel and bias-corrected")
+        r = check_k3(rng, dev, model._qdet, cfg, b, k, tag, True)
+        log(f"[kernel] K3 {tag} B={b} K={k}: {r['ms']:.3f} ms on vector scales beside "
+            f"{scalar['ms']:.3f} ms on the scalar graph (phase 8, the same kernel code), bound "
+            f"{r['bound_ms']:.4f} ms, torch._int_mm {r['gemm_core_ms']:.3f} ms")
+        res[tag[:3]] = r
+        del model
+        torch.cuda.empty_cache()
+    out = res["224"]
+    out["416"] = res["416"]
+    out["max_abs_err"] = max(out["max_abs_err"], out["416"]["max_abs_err"])
+    return out
+
+
+def dense_images(count, seed, size):
+    """`count` seeded DenseShapes scenes (80 classes, 24-48 instances) as one
+    uint8 array."""
+    ds = DenseShapesDataset()
+    ds.load_dense(count, size, size, seed=seed, num_classes=80)
+    ds.prepare()
+    return np.stack([ds.load_image(i) for i in ds.image_ids])
+
+
+def coco_split(tag, model, det, images, cfg, smi, total_ms):
+    """The split of one detect_batch into trunk, mask branch and the rest
+    (decode, NMS, top-K, select, paste), each timed alone on the batch's own
+    ROIs."""
+    with torch.inference_mode():
+        x = images_f32(images)
+        out = model.detect_batch(images)
+        kp = cfg.MASK_TOP_K
+        h, w = cfg.IMAGE_SHAPE[:2]
+        rois = (out["boxes"][:, :kp] / torch.tensor([w, h, w, h], device=x.device)).contiguous()
+        classes = out["classes"][:, :kp].contiguous()
+        if det is None:
+            grid, fmap = model.net.trunk(x)
+            trunk = cuda_ms(lambda: model.net.trunk(x), 5, 2)
+            branch = cuda_ms(lambda: model.net.mask_branch(rois, fmap), 5, 2)
+            name = "mask convs + K2"
+        else:
+            fmap = det.trunk(x)[1]
+            trunk = cuda_ms(lambda: det.trunk(x), 5, 2)
+            branch = cuda_ms(lambda: det.fused_mask(rois, fmap, classes), 5, 2)
+            name = "K3"
+    b = images.shape[0]
+    log(f"[coco416] {tag}: detect_batch B={b} {total_ms:.3f} ms/batch ({b * 1e3 / total_ms:.1f} "
+        f"img/s) = trunk {trunk:.3f} + {name} {branch:.3f} ({b * kp} ROIs) + the rest "
+        f"~{total_ms - trunk - branch:.3f} ms on {smi} (recorded, not claimed)")
+
+
+def phase_coco416(dev, smi, counts):
+    """Q2: detect_batch at CocoStyleConfig's full width on DenseShapes images,
+    float and in three int8 forms, with launch counts, the fused result
+    against the chained layers, and ms per batch."""
+    cfg = Coco416Config()
+    k, (h, w) = cfg.DETECTION_MAX_INSTANCES, cfg.IMAGE_SHAPE[:2]
+    t0 = time.perf_counter()
+    images_np = dense_images(COCO_BATCH + COCO_CALIB, SEED + 5, h)
+    images = torch.as_tensor(images_np[:COCO_BATCH], device=dev)
+    calib = images_np[COCO_BATCH:]
+    log(f"[coco416] {len(images_np)} DenseShapes scenes at {h}x{w} (80 classes) generated in "
+        f"{time.perf_counter() - t0:.1f} s")
+
+    def check_outputs(out, what):
+        if tuple(out["masks"].shape) != (COCO_BATCH, k, h, w) or out["masks"].dtype != torch.bool \
+                or tuple(out["boxes"].shape) != (COCO_BATCH, k, 4):
+            raise AssertionError(f"{what}: masks {tuple(out['masks'].shape)} {out['masks'].dtype}")
+        if not (torch.isfinite(out["scores"]).all() and torch.isfinite(out["boxes"]).all()):
+            raise AssertionError(f"{what}: non-finite scores or boxes")
+        if int(out["valid"].sum()) < COCO_BATCH or int(out["classes"].max()) >= cfg.NUM_CLASSES:
+            raise AssertionError(f"{what}: too few detections or a class out of range")
+
+    model = MaskYOLO("inference", cfg, seed=SEED, device=dev)
+    out = run_main_path(lambda: model.detect_batch(images), counts)
+    check_outputs(out, "bf16")
+    launched = {name: counts[name][-1] for name in KERNELS}
+    log(f"[coco416] bf16 detect_batch B={COCO_BATCH}: {int(out['valid'].sum())} valid detections, "
+        f"{int(out['masks'].sum())} mask pixels; launches {launched}")
+    if launched != {"crop_rois": 1, "crop_rois_backward": 0, "fused_ds_block": 0,
+                    "fused_mask_branch": 0}:
+        raise AssertionError(f"the float 416² batch launched {launched}, expected one K2")
+    ms = cuda_ms(lambda: model.detect_batch(images), 5, 2)
+    coco_split("bf16", model, None, images, cfg, smi, ms)
+    del model
+
+    results = {}
+    forms = (("per tensor", Coco416Config(), 0, K1_LAUNCHES),
+             ("per channel + bias correction", Coco416PcConfig(), 0, 0),
+             (f"per channel + bias correction + {COCO_QAT_STEPS} finetune steps",
+              Coco416PcConfig(), COCO_QAT_STEPS, 0))
+    for tag, qcfg, qat_steps, want_k1 in forms:
+        model = MaskYOLO("inference", qcfg, seed=SEED, device=dev)
+        for kern in KERNELS.values():
+            kern.launches = 0
+        t0 = time.perf_counter()
+        det = model.quantize(calib, finetune_steps=qat_steps)
+        torch.cuda.synchronize()
+        quant_s = time.perf_counter() - t0
+        if qat_steps:
+            r = det.finetune_result
+            log(f"[coco416] finetune on {COCO_CALIB} images: {qat_steps} steps in {quant_s:.1f} s "
+                f"with calibration ({quant_s / qat_steps:.3f} s a step at most), loss "
+                f"{r['loss_initial']:.6f} -> {r['loss_final']:.6f}; K2 forward "
+                f"{crop_rois.launches}, backward {crop_rois_backward.launches} launches")
+            if not r["loss_final"] <= r["loss_initial"] \
+                    or crop_rois_backward.launches != qat_steps:
+                raise AssertionError("the finetune's loss rose or its crop missed K2's backward")
+        out = run_main_path(lambda: model.detect_batch(images), counts,
+                            ("fused_mask_branch",))
+        check_outputs(out, tag)
+        launched = (counts["fused_ds_block"][-1], counts["fused_mask_branch"][-1],
+                    counts["crop_rois"][-1])
+        if launched != (want_k1, K3_LAUNCHES, 0):
+            raise AssertionError(f"{tag}: launches K1 {launched[0]}, K3 {launched[1]}, K2 "
+                                 f"{launched[2]}; expected {want_k1}, {K3_LAUNCHES}, 0")
+        with torch.inference_mode():
+            chained = det.detect_outputs(images, fused_mask=False, fused_ds=False)
+            for key in ("boxes", "classes", "scores", "valid"):
+                if not torch.equal(out[key], chained[key]):
+                    raise AssertionError(f"{tag}: {key} differ between the fused and the "
+                                         f"chained int8 path")
+            agree = (out["masks"] == chained["masks"]).float().mean().item()
+            # the branch's sigmoid masks on this batch's own ROIs, fused and chained
+            kp = qcfg.MASK_TOP_K
+            fmap = det.trunk(images_f32(images))[1]
+            rois = (out["boxes"][:, :kp] / torch.tensor([w, h, w, h], device=dev)).contiguous()
+            classes = out["classes"][:, :kp].contiguous()
+            fused = det.fused_mask(rois, fmap, classes)
+            full = det.mask_branch(rois, fmap)
+            sel = torch.gather(full, -1, classes.long()[:, :, None, None, None].expand(
+                -1, -1, *full.shape[2:4], 1))[..., 0]
+        worst = check_mask_agreement(fused, sel, f"coco416 int8 {tag}: K3 vs the chained branch")
+        log(f"[coco416] int8 {tag}: quantize in {quant_s:.1f} s; {int(out['valid'].sum())} valid "
+            f"detections; launches K1 {launched[0]}, K3 {launched[1]}, K2 {launched[2]}; fused "
+            f"vs chained: boxes, classes, scores, valid identical, pasted masks agree on "
+            f"{agree:.6f} of pixels (limit {MASK_AGREE})")
+        if agree < MASK_AGREE:
+            raise AssertionError(f"{tag}: fused and chained int8 masks disagree")
+        ms = cuda_ms(lambda: model.detect_batch(images), 5, 2)
+        coco_split(f"int8 {tag}", model, det, images, qcfg, smi, ms)
+        results[tag] = {"ms": ms, "max_abs_err": worst}
+        del model, det
+        torch.cuda.empty_cache()
+    return results
+
+
+# ---- --int8-quality: the int8 tools' quality on the 81-class point ------------
+
+
+class RleDenseDataset(CocoDataset):
+    """A DenseShapes set whose annotations went through data/coco.py's RLE
+    JSON (dataset_to_coco_json without image files, CocoDataset.load_coco):
+    masks and classes come from the JSON, the pixels from the generator."""
+
+    def __init__(self, count, seed, workdir):
+        super().__init__()
+        self.dense = DenseShapesDataset()
+        self.dense.load_dense(count, 416, 416, seed=seed, num_classes=80)
+        self.dense.prepare()
+        ann = dataset_to_coco_json(self.dense, str(workdir / f"coco_{seed}"), write_images=False)
+        self.load_coco(ann, "")
+        self.prepare()
+
+    def load_image(self, image_id):
+        return self.dense.load_image(self.image_info[image_id]["id"])
+
+
+def int8_quality(dev, smi, workdir, train_images=300, epochs=25):
+    """Train CocoStyleConfig on DenseShapes (by default at the default budget
+    of the JAX package's tools/quality_run_coco.py: 300 train / 32 val images,
+    25 epochs, batch 16, lr 1e-3, score threshold 0.35), then evaluate 64
+    held-out images with evaluate_dataset in f32 weights and in the int8
+    variants of tools/eval_int8.py (16 calibration images, 200 finetune steps
+    at lr 1e-5), on the port's main int8 path (K1 where the scales are
+    scalar, K3). Prints one JSON line."""
+    class RunConfig(Coco416Config):
+        BATCH_SIZE = 16
+        LABELS = ["background"] + [f"c{i:02d}" for i in range(1, 81)]
+
+    t0 = time.perf_counter()
+    train_ds, val_ds, eval_ds = (RleDenseDataset(n, SEED + i, workdir)
+                                 for i, n in enumerate((train_images, 32, 64)))
+    log(f"[int8-quality] train {len(train_ds.image_ids)}, val {len(val_ds.image_ids)}, eval "
+        f"{len(eval_ds.image_ids)} images, {train_ds.num_classes} classes, through the RLE JSON "
+        f"in {time.perf_counter() - t0:.1f} s")
+    cfg = RunConfig()
+    model = MaskYOLO("training", cfg, model_dir=str(workdir / "ckpt"), seed=SEED, device=dev)
+    t0 = time.perf_counter()
+    model.train(train_ds, val_ds, 1e-3, epochs=epochs, verbose=False)
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    model.save_weights(str(workdir / "weights.pt"))
+    log(f"[int8-quality] trained {epochs} epochs in {train_s:.1f} s")
+    del model
+    calib = np.stack([eval_ds.load_image(i) for i in list(eval_ds.image_ids)[:16]])
+
+    variants = {"f32": None, "pt": {}, "pc": {"QUANT_PER_CHANNEL_ACT": True},
+                "pc_qat": {"QUANT_PER_CHANNEL_ACT": True, "qat": True},
+                "pc_qat_mw": {"QUANT_PER_CHANNEL_ACT": True, "qat": True,
+                              "QUANT_QAT_MASK_WEIGHT": 4.0}}
+    results = {}
+    for name, knobs in variants.items():
+        knobs = dict(knobs or {})
+        qat = knobs.pop("qat", False)
+        vcfg = type("VariantConfig", (RunConfig,), knobs)()
+        infer = MaskYOLO("inference", vcfg, seed=SEED, device=dev)
+        infer.load_weights(str(workdir / "weights.pt"))
+        t0 = time.perf_counter()
+        for kern in KERNELS.values():
+            kern.launches = 0
+        if name != "f32":
+            infer.quantize(calib, finetune_steps=200 if qat else 0, finetune_lr=1e-5)
+        r = evaluate_dataset(infer, eval_ds, vcfg, batch_size=8, score_threshold=0.35)
+        r.pop("per_image")
+        r["seconds"] = round(time.perf_counter() - t0, 1)
+        r["launches"] = {n: kern.launches for n, kern in KERNELS.items()}
+        if qat:
+            r["finetune"] = infer._qdet.finetune_result
+        results[name] = r
+        log(f"[int8-quality] {name}: box AP50 {r['box_ap50']:.4f}, box mAP {r['box_map']:.4f}, "
+            f"mask AP50 {r['mask_ap50']:.4f}, mask mAP {r['mask_map']:.4f} ({r['seconds']} s; "
+            f"launches {r['launches']})")
+        del infer
+        torch.cuda.empty_cache()
+    print(json.dumps({"int8_quality": {
+        "device": smi, "train_seconds": round(train_s, 1), "epochs": epochs,
+        "train_images": train_images,
+        "eval_images": 64, "calib_images": 16, "qat_steps": 200, "results": results}}),
+        flush=True)
+
+
 # ---- --shapes-quality: the port's quality number ------------------------------
 
 
@@ -1597,6 +1899,13 @@ def main() -> int:
                     help="a directory with any of an earlier commit's crop_rois.cu, "
                          "fused_ds_block.cu and fused_mask_branch.cu, timed against the "
                          "current kernels")
+    ap.add_argument("--int8-quality", action="store_true",
+                    help="instead of the phases: train CocoStyleConfig on DenseShapes (300 "
+                         "images, 25 epochs) and print held-out box and mask AP in f32 weights "
+                         "and in four int8 forms")
+    ap.add_argument("--train-images", type=int, default=300,
+                    help="--int8-quality: DenseShapes images to train on")
+    ap.add_argument("--epochs", type=int, default=25, help="--int8-quality: epochs to train")
     ap.add_argument("--shapes-quality", action="store_true",
                     help="instead of the phases: train Shapes for 40 epochs on 400 images "
                          "in f32 and in bf16 and print held-out box and mask AP")
@@ -1614,9 +1923,13 @@ def main() -> int:
         f"{torch.cuda.device_count()} device(s); TF32 off for cuDNN and matmul")
     workdir = Path(__file__).resolve().parent / "build" / "chip_smoke_train"
     shutil.rmtree(workdir, ignore_errors=True)
-    if args.shapes_quality:
+    if args.shapes_quality or args.int8_quality:
         try:
-            shapes_quality(dev, smi, workdir)
+            workdir.mkdir(parents=True)
+            if args.int8_quality:
+                int8_quality(dev, smi, workdir, args.train_images, args.epochs)
+            else:
+                shapes_quality(dev, smi, workdir)
         finally:
             shutil.rmtree(workdir, ignore_errors=True)
         print(smi)
@@ -1658,6 +1971,7 @@ def main() -> int:
     model8 = quantized_model(cfg8, dev)
     k1, k3 = phase_kernels_int8(rng, dev, model8, cfg8, parent)
     phase_repairs(dev, rng)
+    k3_vector = phase_k3_vector_scales(rng, dev, k3)
     int8_counts = {}
     phase_int8_slice(model8, model, cfg8, images, int8_counts)
     phase_serve(model8, cfg8, rng, int8_counts, n=16,
@@ -1668,6 +1982,8 @@ def main() -> int:
     del model8
     torch.cuda.empty_cache()
     phase_infer_yolo(dev, rng, smi, cfg, cfg8, infer_counts)
+    coco_counts = {}
+    coco = phase_coco416(dev, smi, coco_counts)
 
     train_counts, train16_counts, data_counts = {}, {}, {}
     try:
@@ -1685,7 +2001,7 @@ def main() -> int:
     def launches(name):
         return {path: sum(counts.get(name, [])) for path, counts in (
             ("float_detect", float_counts), ("int8_detect", int8_counts),
-            ("infer_yolo", infer_counts), ("train", train_counts),
+            ("infer_yolo", infer_counts), ("coco416", coco_counts), ("train", train_counts),
             ("train_bf16", train16_counts), ("data_evaluate", data_counts))}
 
     b128 = lambda r: {key: r.get(key) for key in (                          # noqa: E731
@@ -1721,7 +2037,17 @@ def main() -> int:
                     k3["max_abs_err"], k3["ms"], k3["plain_ms"], (k3["bound_ms"], k3["bound_by"]),
                     at="B=16, K=10, 28x28x256", parent_ms=k3.get("parent_ms"),
                     gemm_core_ms=k3["gemm_core_ms"], b128=b128(k3["b128"]),
-                    coco416=b128(k3["416"]))]}))
+                    coco416=b128(k3["416"])),
+        # the same kernel on per-channel activation scales (Q1), launched by
+        # the per-channel forms of the 416² slice (Q2: the last two int8 runs)
+        kernel_line("fused_mask_branch, vector scales", "fused_mask_branch.cu",
+                    "mask_yolo_tpu/ops/pallas_mask.py:233",
+                    {"coco416_per_channel": sum(coco_counts["fused_mask_branch"][-2:])},
+                    k3_vector["max_abs_err"], k3_vector["ms"], k3_vector["plain_ms"],
+                    (k3_vector["bound_ms"], k3_vector["bound_by"]),
+                    at="B=16, K=10, 28x28x256, per-channel scales + bias_corr",
+                    gemm_core_ms=k3_vector["gemm_core_ms"], coco416=b128(k3_vector["416"]),
+                    detect_batch_416_ms={tag: r["ms"] for tag, r in coco.items()})]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

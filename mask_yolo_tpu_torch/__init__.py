@@ -10,8 +10,12 @@ Ported so far: the float inference paths (`MaskYOLO(mode="inference")
 .detect / .detect_batch / .infer_yolo`), the int8 path that serves all three
 (`MaskYOLO.quantize`, `quant.py`), the serving executor, training in f32 and
 in bf16 on f32 master weights (`MaskYOLO.train`, with augmentation, pooled
-data workers and profiler traces) and evaluation (`evaluate_dataset`,
-`make_ap_eval_callback`). Three hand-written CUDA kernels run on GPU
+data workers and profiler traces), evaluation (`evaluate_dataset`,
+`make_ap_eval_callback`), the int8 quality tools (per-channel activation
+scales, percentile calibration, bias correction, the quantization-aware
+finetune), the Shapes, DenseShapes, COCO-JSON and VIA datasets, the anchor
+tools, drawing (`utils/visualize.py`) and Keras h5 weights
+(`utils/keras_h5.py`). Three hand-written CUDA kernels run on GPU
 tensors: the ROI crop (`ops/roi_crop.py`, `csrc/crop_rois.cu`), the
 fused int8 depthwise-separable block (`ops/ds_block.py`,
 `csrc/fused_ds_block.cu`) and the fused int8 mask branch

@@ -6,9 +6,11 @@ must run without. Keep the two files in step: the parity tests build both
 packages from the same values.
 
 Hyperparameters are class attributes, users subclass `Config` and override
-what they need, and `display()` dumps the resolved values. Several knobs
-(QUANT_*, TRAIN_SCAN_STEPS, DATA_PARALLEL) belong to parts of the JAX package
-the port does not have yet; their comments describe the JAX package.
+what they need, and `display()` dumps the resolved values. Some knobs
+(TRAIN_SCAN_STEPS, DATA_PARALLEL, QUANT_FAST_CROP, QUANT_FOLD_MASK_SELECT,
+QUANT_PALLAS_CROP) belong to parts of the JAX package the port does not
+have; the comments on the QUANT_* knobs describe the JAX package's
+measurements, not the port's.
 """
 
 from __future__ import annotations

@@ -10,8 +10,13 @@
 //                                      k in (di, dj, ci) order, 128-byte swizzled
 //   wd      [4*co, co]     int8        deconv as a 1x1 conv, rows (di, dj, o), swizzled
 //   wout    [co, nc]       bf16        the class conv (block 0 of the TPU kernel's wo)
-//   wsc     [5, ld], bias [6, ld] f32  per-channel weight scales and biases
-//   asc0..5                f32         activation scales
+//   wsc     [5, ld], bias [6, ld] f32  per-channel dequantize factors (weight scale
+//                                      x input scale) and biases
+//   asc     [7, lda]       f32         per-channel activation scales: rows 0-5 the
+//                                      inverse input scale of the four convs, the
+//                                      deconv and the class conv, row 6 the class
+//                                      conv's input scale itself (a per-tensor
+//                                      graph repeats one value along each row)
 //   out     [B*K, 2P, 2P]  f32         each ROI's class mask (bf16 values)
 //
 // The swizzle (ops/mask_fused.py::swizzle_nk): within each 128-byte block of
@@ -33,11 +38,11 @@
 // Six launches on the caller's stream, one C entry point:
 //   1. crop_quant: bilinear crop of each ROI (both contractions rounded to
 //      bf16 exactly like the plain version's two bf16 matmuls, since each
-//      has two non-zero taps) and int8 at asc0 -> x0 [M, Cf];
+//      has two non-zero taps) and int8 by asc row 0 -> x0 [M, Cf];
 //   2-5. conv3x3: implicit GEMM over each ROI's zero-padded P x P tile;
 //   6. deconv + class conv: the 1x1 GEMM to 4*co with its epilogue fused
-//      with the int8 requantize at asc5, the bf16 class conv of the ROI's
-//      own class only (bf16(y_q)*bf16(asc5) times bf16 wout, f32 sums), the
+//      with the int8 requantize by asc row 5, the bf16 class conv of the ROI's
+//      own class only (bf16(y_q)*bf16(asc row 6) times bf16 wout, f32 sums), the
 //      sigmoid, the bf16 rounding and the depth-to-space store.
 //
 // The GEMM (launches 2-6): a block is BM = 128 rows x BN = 256 columns (all
@@ -57,7 +62,9 @@
 // moment is less the tensor cores than the L2: every block reads 48 KB a
 // k-step (A and B) for 4.2 M MACs.
 // Every f32 multiply-add of the int8 epilogues uses _rn intrinsics (no FMA
-// contraction) and __float2int_rn (half to even), as the plain version.
+// contraction) and __float2int_rn (half to even), as the plain version. The
+// scale rows stay in global memory behind __ldg: the ring takes all the
+// shared memory, and every block reads the same few KB.
 // Needs Cf % 128 == 0 and co == 256 (the wrapper checks).
 
 #include <cuda_bf16.h>
@@ -146,7 +153,8 @@ __device__ __forceinline__ Taps sample(float lo, float hi, int in_size, int i, i
 // threadIdx.y walks px.
 __global__ void crop_quant_kernel(const __nv_bfloat16* __restrict__ fmap,
                                   const float* __restrict__ boxes, int8_t* __restrict__ x0,
-                                  int H, int W, int C, int K, int P, float inv0) {
+                                  int H, int W, int C, int K, int P,
+                                  const float* __restrict__ inv0) {
   const int py = blockIdx.x % P;
   const int roi = blockIdx.x / P;
   const int b = roi / K;
@@ -162,6 +170,9 @@ __global__ void crop_quant_kernel(const __nv_bfloat16* __restrict__ fmap,
       int2 packed = make_int2(0, 0);
       int8_t* q = reinterpret_cast<int8_t*>(&packed);
       if (valid) {
+        const float4 ia = __ldg(reinterpret_cast<const float4*>(inv0 + c0));
+        const float4 ib = __ldg(reinterpret_cast<const float4*>(inv0 + c0 + 4));
+        const float inv[8] = {ia.x, ia.y, ia.z, ia.w, ib.x, ib.y, ib.z, ib.w};
         const int4 v00 = *reinterpret_cast<const int4*>(img + (static_cast<size_t>(ty.i0) * W + tx.i0) * C + c0);
         const int4 v10 = *reinterpret_cast<const int4*>(img + (static_cast<size_t>(ty.i1) * W + tx.i0) * C + c0);
         const int4 v01 = *reinterpret_cast<const int4*>(img + (static_cast<size_t>(ty.i0) * W + tx.i1) * C + c0);
@@ -178,12 +189,9 @@ __global__ void crop_quant_kernel(const __nv_bfloat16* __restrict__ fmap,
           const float t1 = bf16r(__fadd_rn(__fmul_rn(ty.w0, __bfloat162float(f01[j])),
                                            __fmul_rn(ty.w1, __bfloat162float(f11[j]))));
           const float v = bf16r(__fadd_rn(__fmul_rn(tx.w0, t0), __fmul_rn(tx.w1, t1)));
-          q[j] = requant(v, inv0);
+          q[j] = requant(v, inv[j]);
         }
-      } else {
-#pragma unroll
-        for (int j = 0; j < 8; ++j) q[j] = requant(0.f, inv0);
-      }
+      }  // off the map the crop is 0, which is int8 0 at any scale
       *reinterpret_cast<int2*>(dst + c0) = packed;
     }
   }
@@ -194,10 +202,11 @@ __global__ void crop_quant_kernel(const __nv_bfloat16* __restrict__ fmap,
 struct GemmArgs {
   const int8_t* a;      // [M, Cin] int8 activations (ROI tiles of P x P rows)
   const int8_t* w;      // [N, KS*KS*Cin] int8, swizzled
-  const float* wsc;     // [N]
+  const float* wsc;     // [N] dequantize factors
   const float* bias;    // [N]
+  const float* inv_out; // [N] inverse scales of the output's int8
+  const float* asc_out; // [N] class-select mode: the scales themselves
   int M, N, Cin, P;
-  float asc_in, inv_out, asc_out;
   int8_t* out;          // requantize mode: [M, N] int8
   // class-select mode (the deconv):
   const int* classes;           // [M / P^2]
@@ -369,17 +378,17 @@ __global__ void __launch_bounds__(THREADS, 1) gemm_kernel(GemmArgs g) {
 #pragma unroll
     for (int j = 0; j < 32; ++j) {
       const int c = 8 * j + t4 * 2;
-      const float s0 = __fmul_rn(__ldg(g.wsc + n0 + c), g.asc_in);
-      const float s1 = __fmul_rn(__ldg(g.wsc + n0 + c + 1), g.asc_in);
-      const float b0 = __ldg(g.bias + n0 + c), b1 = __ldg(g.bias + n0 + c + 1);
+      const float2 sc = __ldg(reinterpret_cast<const float2*>(g.wsc + n0 + c));
+      const float2 bi = __ldg(reinterpret_cast<const float2*>(g.bias + n0 + c));
+      const float2 iv = __ldg(reinterpret_cast<const float2*>(g.inv_out + n0 + c));
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
         const int r = wg * 64 + wi * 16 + gq + 8 * h;
         char2 q;
-        q.x = requant(fmaxf(__fadd_rn(__fmul_rn(__int2float_rn(acc[4 * j + 2 * h]), s0), b0),
-                            0.f), g.inv_out);
-        q.y = requant(fmaxf(__fadd_rn(__fmul_rn(__int2float_rn(acc[4 * j + 2 * h + 1]), s1),
-                                      b1), 0.f), g.inv_out);
+        q.x = requant(fmaxf(__fadd_rn(__fmul_rn(__int2float_rn(acc[4 * j + 2 * h]), sc.x),
+                                      bi.x), 0.f), iv.x);
+        q.y = requant(fmaxf(__fadd_rn(__fmul_rn(__int2float_rn(acc[4 * j + 2 * h + 1]), sc.y),
+                                      bi.y), 0.f), iv.y);
         *reinterpret_cast<char2*>(cs + r * C_STRIDE + c) = q;
       }
     }
@@ -394,36 +403,50 @@ __global__ void __launch_bounds__(THREADS, 1) gemm_kernel(GemmArgs g) {
     return;
   }
 
-  // deconv epilogue: requantize at asc5, then the class conv of each row's
+  // deconv epilogue: requantize by asc row 5, then the class conv of each row's
   // ROI class over this block's 256 columns, reduced in a fixed order: each
   // thread over its columns in ascending order, then across the four
   // threads of the row (xor 1, then xor 2)
-  const float a5 = bf16r(g.asc_out);
+  // (columns outside, the thread's two rows inside: a column's four scale
+  // values are loaded once for both rows)
+  int mrow[2];
+  const __nv_bfloat16* wcol[2];
+  float part[2] = {0.f, 0.f};
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
-    const int r = wg * 64 + wi * 16 + gq + 8 * h;
-    const int m = m0 + r;
-    const __nv_bfloat16* wcol = g.wout + __ldg(g.classes + (m < g.M ? m / PP : 0));
-    float part = 0.f;
+    mrow[h] = m0 + wg * 64 + wi * 16 + gq + 8 * h;
+    wcol[h] = g.wout + __ldg(g.classes + (mrow[h] < g.M ? mrow[h] / PP : 0));
+  }
 #pragma unroll
-    for (int j = 0; j < 32; ++j)
+  for (int j = 0; j < 32; ++j) {
+    const int c = 8 * j + t4 * 2;
+    const float2 sc = __ldg(reinterpret_cast<const float2*>(g.wsc + n0 + c));
+    const float2 bi = __ldg(reinterpret_cast<const float2*>(g.bias + n0 + c));
+    const float2 iv = __ldg(reinterpret_cast<const float2*>(g.inv_out + n0 + c));
+    const float2 as = __ldg(reinterpret_cast<const float2*>(g.asc_out + n0 + c));
+    const float a5[2] = {bf16r(as.x), bf16r(as.y)};
+    const float scs[2] = {sc.x, sc.y}, bis[2] = {bi.x, bi.y}, ivs[2] = {iv.x, iv.y};
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
 #pragma unroll
       for (int e = 0; e < 2; ++e) {
-        const int c = 8 * j + t4 * 2 + e;
-        const int n = n0 + c;
-        const float y = __fadd_rn(__fmul_rn(__int2float_rn(acc[4 * j + 2 * h + e]),
-                                            __fmul_rn(__ldg(g.wsc + n), g.asc_in)),
-                                  __ldg(g.bias + n));
-        const float q = static_cast<float>(requant(fmaxf(y, 0.f), g.inv_out));
-        const float yb = bf16r(__fmul_rn(q, a5));
-        part = __fadd_rn(part, __fmul_rn(yb, __bfloat162float(wcol[c * g.nc])));
+        const float y = __fadd_rn(__fmul_rn(__int2float_rn(acc[4 * j + 2 * h + e]), scs[e]),
+                                  bis[e]);
+        const float q = static_cast<float>(requant(fmaxf(y, 0.f), ivs[e]));
+        const float yb = bf16r(__fmul_rn(q, a5[e]));
+        part[h] = __fadd_rn(part[h],
+                            __fmul_rn(yb, __bfloat162float(wcol[h][(c + e) * g.nc])));
       }
-    part = __fadd_rn(part, __shfl_xor_sync(0xffffffffu, part, 1));
-    part = __fadd_rn(part, __shfl_xor_sync(0xffffffffu, part, 2));
+  }
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int m = mrow[h];
+    float p = __fadd_rn(part[h], __shfl_xor_sync(0xffffffffu, part[h], 1));
+    p = __fadd_rn(p, __shfl_xor_sync(0xffffffffu, p, 2));
     if (t4 == 0 && m < g.M) {
       const int roi = m / PP, pix = m % PP;
       const int py = pix / g.P, px = pix % g.P;
-      const float logit = __fadd_rn(part, __ldg(g.bias_out + __ldg(g.classes + roi)));
+      const float logit = __fadd_rn(p, __ldg(g.bias_out + __ldg(g.classes + roi)));
       const float prob = bf16r(1.f / (1.f + expf(-logit)));
       const int di = blockIdx.y >> 1, dj = blockIdx.y & 1;
       const int side = 2 * g.P;
@@ -439,13 +462,12 @@ __global__ void __launch_bounds__(THREADS, 1) gemm_kernel(GemmArgs g) {
 extern "C" int fused_mask_branch(const void* fmap, const void* boxes, const void* classes,
                                  const void* w1, const void* w2, const void* w3, const void* w4,
                                  const void* wd, const void* wout, const void* wsc,
-                                 const void* bias, void* x0, void* xa, void* xb, void* masks,
-                                 int B, int H, int W, int Cf, int K, int P, int co, int nc, int ld,
-                                 float asc0, float asc1, float asc2, float asc3, float asc4,
-                                 float asc5, void* stream) {
+                                 const void* bias, const void* asc, void* x0, void* xa, void* xb,
+                                 void* masks, int B, int H, int W, int Cf, int K, int P, int co,
+                                 int nc, int ld, int lda, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int M = B * K * P * P;
-  const float asc[6] = {asc0, asc1, asc2, asc3, asc4, asc5};
+  const float* ascf = static_cast<const float*>(asc);
   const float* wscf = static_cast<const float*>(wsc);
   const float* biasf = static_cast<const float*>(bias);
 
@@ -460,7 +482,7 @@ extern "C" int fused_mask_branch(const void* fmap, const void* boxes, const void
     dim3 block(Cf / 8 < 32 ? Cf / 8 : 32, 8);
     crop_quant_kernel<<<B * K * P, block, 0, s>>>(
         static_cast<const __nv_bfloat16*>(fmap), static_cast<const float*>(boxes),
-        static_cast<int8_t*>(x0), H, W, Cf, K, P, 1.0f / asc0);
+        static_cast<int8_t*>(x0), H, W, Cf, K, P, ascf);
     const int err = static_cast<int>(cudaGetLastError());
     if (err) return err;
   }
@@ -479,8 +501,7 @@ extern "C" int fused_mask_branch(const void* fmap, const void* boxes, const void
     g.N = co;
     g.Cin = l == 0 ? Cf : co;
     g.P = P;
-    g.asc_in = asc[l];
-    g.inv_out = 1.0f / asc[l + 1];
+    g.inv_out = ascf + (l + 1) * lda;
     g.out = bufs[l % 2];
     gemm_kernel<3, false><<<dim3(mblocks, co / BN), THREADS, SMEM_BYTES, s>>>(g);
     const int err = static_cast<int>(cudaGetLastError());
@@ -497,9 +518,8 @@ extern "C" int fused_mask_branch(const void* fmap, const void* boxes, const void
   g.N = 4 * co;
   g.Cin = co;
   g.P = P;
-  g.asc_in = asc4;
-  g.inv_out = 1.0f / asc5;
-  g.asc_out = asc5;
+  g.inv_out = ascf + 5 * lda;
+  g.asc_out = ascf + 6 * lda;
   g.classes = static_cast<const int*>(classes);
   g.wout = static_cast<const __nv_bfloat16*>(wout);
   g.bias_out = biasf + 5 * ld;

@@ -4,9 +4,7 @@ over a preloaded dataset, the endless `data_generator` (re-read and
 re-augmented every epoch) with `GeneratorEpochSource`, and its pooled loader
 workers (threads, or fork-started processes). The workers run numpy code
 only: a forked loader process inherits the parent's CUDA context and must
-never touch it, so nothing in `_load_one` imports or calls torch. The
-generators' norm=False debug drawing comes with visualize (ROADMAP Queue 1
-#5).
+never touch it, so nothing in `_load_one` imports or calls torch.
 
 Replaces the reference's BatchGenerator(Sequence)
 (reference myolo/myolo_utils.py:689-860). Same contract — indexable,
@@ -57,16 +55,38 @@ def preload_dataset(dataset, config, image_ids=None, augment=False,
     }
 
 
+def _debug_draw_batch(images, gt_boxes, gt_class_ids):
+    """The generators' norm=False debug mode (reference
+    myolo_utils.py:826-840): 0..255 float images with the GT boxes drawn on
+    them, the box colour cycling by class id."""
+    from ..utils.visualize import draw_box, random_colors
+
+    colors = random_colors(10, seed=0)
+    out = np.asarray(images)
+    if out.dtype != np.uint8 and out.max() <= 1.5:  # normalized floats
+        out = out * 255.0
+    out = out.astype(np.float32)
+    for b in range(out.shape[0]):
+        for box, cid in zip(gt_boxes[b], gt_class_ids[b]):
+            if cid == 0 and not np.any(box):
+                continue
+            draw_box(out[b], box, np.asarray(colors[int(cid) % len(colors)]) * 255.0)
+    return out
+
+
 class BatchGenerator:
-    """Fixed-shape batch source over a preloaded dataset dict."""
+    """Fixed-shape batch source over a preloaded dataset dict. norm=False is
+    the reference's generator debug mode: images come back un-normalized
+    (0..255) with the GT boxes drawn onto them."""
 
     def __init__(self, data: dict, config, mode: str = "training",
-                 shuffle: bool = True, seed: int | None = None):
+                 shuffle: bool = True, seed: int | None = None, norm: bool = True):
         if mode not in ("yolo", "training"):
             raise ValueError(f"mode must be 'yolo' or 'training', got {mode!r}")
         self.data = data
         self.config = config
         self.mode = mode
+        self.norm = norm
         self.shuffle = shuffle
         self.rng = np.random.RandomState(seed)
         self.n = data["images"].shape[0]
@@ -101,6 +121,8 @@ class BatchGenerator:
         gt_ids = self.data["gt_class_ids"][ids]
         gt_boxes = self.data["gt_boxes"][ids]
         yolo_target, true_boxes = encode_batch(gt_boxes, gt_ids, self.config)
+        if not self.norm:
+            images = _debug_draw_batch(images, gt_boxes, gt_ids)
 
         batch = {
             "image": images,
@@ -157,10 +179,12 @@ def _load_one(dataset, config, image_id, augment, augmentation, seed):
     return np.ascontiguousarray(image, dtype=np.uint8), ids, bxs, msks
 
 
-def _assemble(items, config, mode):
+def _assemble(items, config, mode, norm=True):
     """B loaded items (image, class ids, boxes, masks) as one batch dict."""
     images, gt_ids, gt_boxes, gt_masks = (np.stack([it[i] for it in items]) for i in range(4))
     yolo_target, true_boxes = encode_batch(gt_boxes, gt_ids, config)
+    if not norm:
+        images = _debug_draw_batch(images, gt_boxes, gt_ids)
     batch = {"image": images, "true_boxes": true_boxes, "yolo_target": yolo_target}
     if mode == "training":
         batch["gt_class_ids"] = gt_ids
@@ -182,7 +206,7 @@ def data_generator(dataset, config, shuffle=True, augment=False,
     preload path this re-reads (and re-augments) images every epoch, so it
     suits datasets too large to preload or with stochastic augmentation.
     seed drives shuffling, the `augment` flip and GT subsampling;
-    norm=False (the debug drawing) raises until visualize is ported.
+    norm=False is the debug mode (see BatchGenerator).
 
     workers (default config.DATA_WORKERS): >0 runs per-image load+augment
     on a worker pool (the reference merely computed cpu_count() and left
@@ -200,16 +224,12 @@ def data_generator(dataset, config, shuffle=True, augment=False,
 
     from .loader import load_image_gt, pack_gt
 
-    if not norm:
-        raise NotImplementedError(
-            "norm=False (debug drawing) is not ported yet (ROADMAP Queue 1 #5, item 8: "
-            "utils/visualize.py)")
     if workers is None:
         workers = int(getattr(config, "DATA_WORKERS", 0) or 0)
     if workers > 0:
         yield from _data_generator_pooled(
             dataset, config, shuffle, augment, augmentation, mode,
-            error_limit, seed, workers,
+            error_limit, seed, norm, workers,
             pool_mode=str(getattr(config, "DATA_WORKER_MODE", "thread")))
         return
 
@@ -239,7 +259,7 @@ def data_generator(dataset, config, shuffle=True, augment=False,
         items.append((np.ascontiguousarray(image, dtype=np.uint8), ids, bxs, msks))
         if len(items) < b:
             continue
-        yield _assemble(items, config, mode)
+        yield _assemble(items, config, mode, norm)
         items = []
 
 
@@ -321,7 +341,7 @@ class _ForkedLoaderPool:
 
 
 def _data_generator_pooled(dataset, config, shuffle, augment, augmentation,
-                           mode, error_limit, seed, workers,
+                           mode, error_limit, seed, norm, workers,
                            pool_mode="thread"):
     """Worker-pooled body of data_generator(workers>0). Work items are
     submitted in shuffle order with sequentially-derived seeds and consumed
@@ -402,7 +422,7 @@ def _data_generator_pooled(dataset, config, shuffle, augment, augmentation,
             items.append(item)
             if len(items) < b:
                 continue
-            yield _assemble(items, config, mode)
+            yield _assemble(items, config, mode, norm)
             items = []
     finally:
         # reached on generator .close()/GC: don't leak pool workers

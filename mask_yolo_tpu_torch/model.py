@@ -45,8 +45,28 @@ from .train import state as state_lib
 from .train import trainer as trainer_lib
 from .utils.host_ops import BoundBox, unmold_mask
 
-_NO_VISUALIZE = ("display=True needs utils/visualize.py, which is not ported yet "
-                 "(ROADMAP Queue 1 #5, item 8: the rest of the MaskYOLO facade)")
+
+def _deep_merge_by_name(current, loaded, exclude: set, report: dict, _path: str = ""):
+    """Leaf-wise by-name merge of `loaded` into `current` (Keras by_name
+    semantics): a leaf is taken where the same path exists in `current` with
+    the same shape; mismatches go to report['shape_mismatch'], unknown paths
+    to report['skipped']."""
+    if not isinstance(current, dict) or not isinstance(loaded, dict):
+        cur, new = np.asarray(current), np.asarray(loaded)
+        if cur.shape != new.shape:
+            report["shape_mismatch"].append(f"{_path}: have {cur.shape}, file has {new.shape}")
+            return current
+        return new.astype(cur.dtype)
+    merged = dict(current)
+    for k, v in loaded.items():
+        if k in exclude:
+            continue
+        if k in merged:
+            merged[k] = _deep_merge_by_name(merged[k], v, exclude, report,
+                                            f"{_path}/{k}" if _path else k)
+        else:
+            report.setdefault("skipped", []).append(f"{_path}/{k}")
+    return merged
 
 
 class MaskYOLO:
@@ -101,10 +121,15 @@ class MaskYOLO:
 
         if yolo_pretrain_dir is not None:
             if str(yolo_pretrain_dir).endswith((".h5", ".hdf5")):
-                raise NotImplementedError(
-                    "Keras h5 weights are not ported yet (ROADMAP Queue 1 item 8, "
-                    "MaskYOLO facade: load_weights including Keras h5)")
-            self.load_weights(yolo_pretrain_dir, by_name=True)
+                report = self.load_weights_from_keras_h5(yolo_pretrain_dir)
+                # a file that brings no YOLO-branch weights would leave a
+                # random (and, with yolo_trainable=False, frozen) head
+                if not any(p and p[0] == "yolo" for p in report.get("loaded_paths", ())):
+                    raise ValueError(
+                        f"{yolo_pretrain_dir} contained no YOLO-branch weights (loaded: "
+                        f"{report['loaded']}, skipped: {report['skipped']})")
+            else:
+                self.load_weights(yolo_pretrain_dir, by_name=True)
 
     # -- training ------------------------------------------------------------
 
@@ -277,6 +302,33 @@ class MaskYOLO:
         state_lib.load_into(self.net, params, stats)
         self._sync_host_state()
 
+    def load_weights_from_keras_h5(self, filepath, exclude=None):
+        """Load a Keras-2 h5 file written by the reference codebase (a
+        pretrained YOLO branch or a whole ModelCheckpoint file). Layers merge
+        by name with a shape check (Keras by_name semantics); `exclude` skips
+        top-level modules (e.g. ["mask"]). The file's kernels are read into
+        the flax-layout tree and go through the weight bridge, so the deconv
+        follows flax's orientation like every other load. Needs h5py.
+        Returns the conversion report."""
+        import warnings
+
+        from .utils import keras_h5
+
+        if self._host_state is None:
+            self._sync_host_state()
+        params, stats, report = keras_h5.load_keras_h5(filepath)
+        report.setdefault("shape_mismatch", [])
+        current = weights.to_jax_variables(self._host_state)
+        skip = set(exclude or ())
+        merged = {"params": _deep_merge_by_name(current["params"], params, skip, report),
+                  "batch_stats": _deep_merge_by_name(current["batch_stats"], stats, skip,
+                                                     report)}
+        self.load_jax_variables(merged)
+        if report["skipped"] or report["shape_mismatch"]:
+            warnings.warn(f"keras_h5 load from {filepath}: skipped layers {report['skipped']}, "
+                          f"shape mismatches {report['shape_mismatch']}", stacklevel=2)
+        return report
+
     def _sync_host_state(self):
         """The f32 host copy of the weights (of the masters, for a training
         model)."""
@@ -309,17 +361,17 @@ class MaskYOLO:
                             for k, v in state.items()}
         self._invalidate_infer_fns()
 
-    def quantize(self, calib_images, finetune_steps: int = 0):
+    def quantize(self, calib_images, finetune_steps: int = 0, finetune_lr: float = 1e-5):
         """Switch detect/detect_batch/infer_yolo to the int8 path (post-training
         quantization, quant.py). calib_images: [N, H, W, 3] uint8 (divided
         by 255) or float in [0, 1], for the activation-range calibration,
         which runs on the model's device. The config's QUANT_* switches pick
-        the kernels (QUANT_DW_INT8 + QUANT_FUSED_DS: K1; QUANT_FUSED_MASK:
-        K3). A later load_jax_variables, load_weights or train drops the
-        int8 detector."""
-        if finetune_steps:
-            raise NotImplementedError(
-                "quantization-aware finetune is not ported yet (ROADMAP Queue 1 item 10)")
+        the statistics (QUANT_PER_CHANNEL_ACT, QUANT_CALIB_PCT,
+        QUANT_BIAS_CORRECT) and the kernels (QUANT_DW_INT8 + QUANT_FUSED_DS:
+        K1; QUANT_FUSED_MASK: K3). finetune_steps > 0 then runs the
+        label-free quantization-aware fine-tuning
+        (QuantizedDetector.finetune) on calib_images at finetune_lr. A later
+        load_jax_variables, load_weights or train drops the int8 detector."""
         calib = calib_images
         if not torch.is_tensor(calib):
             calib = torch.from_numpy(np.ascontiguousarray(calib))
@@ -328,10 +380,13 @@ class MaskYOLO:
             calib = calib.float() / 255.0
         if self._host_state is None:
             self._sync_host_state()
-        self._qdet = QuantizedDetector.from_variables(
+        qdet = QuantizedDetector.from_variables(
             weights.to_jax_variables(self._host_state), self.config, calib,
             device=self.device)
-        return self._qdet
+        if finetune_steps:
+            qdet.finetune(calib, steps=finetune_steps, lr=finetune_lr)
+        self._qdet = qdet
+        return qdet
 
     def _images(self, images):
         if not torch.is_tensor(images):
@@ -364,9 +419,7 @@ class MaskYOLO:
         self.net.eval()
         return pipelines.infer_yolo_outputs(self.net, self._images(images), self.config)
 
-    def _one_image(self, image, weights_dir, display):
-        if display:
-            raise NotImplementedError(_NO_VISUALIZE)
+    def _one_image(self, image, weights_dir):
         image = np.asarray(image)
         if image.dtype != np.uint8:
             raise ValueError(f"expected a uint8 image, got {image.dtype}")
@@ -375,42 +428,60 @@ class MaskYOLO:
         return image[None]
 
     def infer_yolo(self, image, weights_dir=None, save_path="./img_results/",
-                   display=False):
+                   display=True):
         """Detection-only inference on one uint8 [H, W, 3] image: a list of
         `BoundBox` (utils/host_ops.py: .xmin/.get_label()/.get_score() and
         dict access), normalized coordinates. After quantize() this serves
-        the int8 trunk, like detect. save_path is where display=True will
-        write its figure once visualize is ported; until then display=True
-        raises (the JAX package's default is True)."""
-        del save_path
+        the int8 trunk, like detect. display=True (the default, as in the
+        JAX package) draws the boxes into save_path/InferYOLO-<time>.png,
+        which needs matplotlib."""
         out = {k: v.cpu().numpy() for k, v in
-               self._infer_yolo_batch(self._one_image(image, weights_dir, display)).items()}
+               self._infer_yolo_batch(self._one_image(image, weights_dir)).items()}
         boxes = []
         for i in np.where(out["valid"][0])[0]:
             x1, y1, x2, y2 = out["boxes"][0, i]
             boxes.append(BoundBox(xmin=float(x1), ymin=float(y1), xmax=float(x2),
                                   ymax=float(y2), score=float(out["scores"][0, i]),
                                   label=int(out["classes"][0, i])))
+        if display:
+            from .utils import visualize
+
+            os.makedirs(save_path, exist_ok=True)
+            now = datetime.datetime.now().strftime("%b-%d-%H-%M")
+            visualize.draw_boxes_mpl(image, boxes, self.config.LABELS,
+                                     save_file=os.path.join(save_path, f"InferYOLO-{now}.png"))
         return boxes
 
     def detect(self, image, weights_dir=None, save_path="./img_results/",
-               cs_threshold=0.35, display=False):
+               cs_threshold=0.35, display=True):
         """One uint8 [H, W, 3] image → [{bboxes, class_ids,
         confidence_scores, full_masks [H, W, N]}] as numpy arrays (the JAX
-        package's parameters in its order; display=True raises until
-        visualize is ported, so it defaults to False here)."""
-        del save_path
+        package's signature). display=True (the default) draws the instances
+        into save_path/InferMaskYOLO-<name>-<time>.png, which needs
+        matplotlib."""
         if self.mode != "inference":
             raise ValueError("detect needs a model in 'inference' mode")
         out = {k: v.cpu().numpy() for k, v in
-               self.detect_batch(self._one_image(image, weights_dir, display)).items()}
+               self.detect_batch(self._one_image(image, weights_dir)).items()}
         idx = np.where(out["valid"][0] & (out["scores"][0] >= cs_threshold))[0]
-        return [{
+        results = [{
             "bboxes": out["boxes"][0][idx],
             "class_ids": out["classes"][0][idx],
             "confidence_scores": out["scores"][0][idx],
             "full_masks": np.transpose(out["masks"][0][idx], (1, 2, 0)),
         }]
+        if display:
+            from .utils import visualize
+
+            os.makedirs(save_path, exist_ok=True)
+            now = datetime.datetime.now().strftime("%b-%d-%H-%M")
+            name = self.config.NAME or "MaskYOLO"
+            r = results[0]
+            visualize.display_instances(
+                image, r["bboxes"], r["full_masks"], r["class_ids"], self.config.LABELS,
+                r["confidence_scores"],
+                save_path=os.path.join(save_path, f"InferMaskYOLO-{name}-{now}.png"))
+        return results
 
     def decode_masks(self, detections, myolo_mask, image_shape):
         """Host-side reformatting kept for API parity. detections:

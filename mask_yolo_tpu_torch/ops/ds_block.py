@@ -32,12 +32,20 @@ from . import _build
 from .int8 import int_mm, inv_scale, quantize
 
 
+def _full_bias(layer):
+    bias = np.asarray(layer.bias, np.float32)
+    corr = getattr(layer, "bias_corr", None)
+    return bias if corr is None else bias + np.asarray(corr, np.float32)
+
+
 def pack_ds_pair(dw_layer, pw_layer, s_in: float):
     """quant.Layer pair → the kernel's operands (numpy):
     kdw [9, C] int8 taps in (di, dj) order, dwsb [2, C] f32 =
     (dw.w_scale · s_in, dw.bias), wpw [O, C] int8 (K-contiguous: the
     transpose of the JAX package's [C, O]), pwsb [2, O] f32 =
-    (pw.w_scale · pw.a_scale, pw.bias). s_in: the int8 input's scale."""
+    (pw.w_scale · pw.a_scale, pw.bias). s_in: the int8 input's scale. Each
+    bias is bias + bias_corr where the layer has a correction, as
+    quant.run_layer_int8 adds it."""
     assert dw_layer.kind == "dw" and dw_layer.strides == (1, 1)
     assert dw_layer.quantize and dw_layer.w_q is not None
     assert pw_layer.kind == "conv" and pw_layer.w_q is not None
@@ -45,10 +53,10 @@ def pack_ds_pair(dw_layer, pw_layer, s_in: float):
     c = dw_layer.w_q.shape[-1]
     kdw = np.ascontiguousarray(np.asarray(dw_layer.w_q).reshape(9, c))
     dwsb = np.stack([np.asarray(dw_layer.w_scale, np.float32) * np.float32(s_in),
-                     np.asarray(dw_layer.bias, np.float32)])
+                     _full_bias(dw_layer)])
     wpw = np.ascontiguousarray(np.asarray(pw_layer.w_q).reshape(c, -1).T)
     pwsb = np.stack([np.asarray(pw_layer.w_scale, np.float32) * np.float32(pw_layer.a_scale),
-                     np.asarray(pw_layer.bias, np.float32)])
+                     _full_bias(pw_layer)])
     return kdw, dwsb, wpw, pwsb
 
 

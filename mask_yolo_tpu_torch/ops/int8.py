@@ -3,7 +3,8 @@ versions of its kernels (ds_block.py, mask_fused.py).
 
 `quantize` is `quant._quantize_act` of the JAX package bit for bit:
 inv = f32(1) / f32(scale), then round half to even (`torch.round`, like
-`jnp.round`), then clip to ±127. `int_mm` is an int8 matrix product with
+`jnp.round`), then clip to ±127; a vector scale (one value per channel)
+broadcasts over the last axis. `int_mm` is an int8 matrix product with
 int32 accumulation, exact on every device.
 """
 
@@ -14,14 +15,37 @@ import torch
 import torch.nn.functional as F
 
 
-def inv_scale(scale) -> float:
-    """f32(1) / f32(scale), as a Python float (exact in f32)."""
-    return float(np.float32(1.0) / np.float32(scale))
+def inv_scale(scale):
+    """f32(1) / f32(scale): a Python float (exact in f32) for a scalar, an
+    f32 array for a vector."""
+    inv = np.float32(1.0) / np.asarray(scale, np.float32)
+    return inv if inv.ndim else float(inv)
+
+
+_VECTORS = {}   # (id of the array, device, inverse?) → (the array, its tensor)
+
+
+def scale_tensor(scale, device, inverse: bool = False):
+    """A per-channel scale vector (numpy) or its f32 inverse as a tensor on
+    `device`, cached while the array lives on in a layer graph."""
+    key = (id(scale), str(device), inverse)
+    hit = _VECTORS.get(key)
+    if hit is None or hit[0] is not scale:
+        if len(_VECTORS) > 4096:
+            _VECTORS.clear()
+        arr = inv_scale(scale) if inverse else np.asarray(scale, np.float32)
+        with torch.inference_mode(False):   # a plain tensor, usable under autograd
+            hit = (scale, torch.as_tensor(arr, device=device))
+        _VECTORS[key] = hit
+    return hit[1]
 
 
 def quantize(x, scale):
-    """f32 tensor → int8 at a per-tensor `scale`."""
-    return torch.clamp(torch.round(x * inv_scale(scale)), -127, 127).to(torch.int8)
+    """f32 tensor → int8 at `scale`: a scalar, or a numpy vector over the
+    last axis."""
+    inv = scale_tensor(scale, x.device, True) if isinstance(scale, np.ndarray) \
+        else inv_scale(scale)
+    return torch.clamp(torch.round(x * inv), -127, 127).to(torch.int8)
 
 
 def _round8(n: int) -> int:

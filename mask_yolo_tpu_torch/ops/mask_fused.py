@@ -8,15 +8,25 @@ TPU kernel's body (`_mask_kernel`) step by step:
 
   1. bilinear crop of each ROI from the bf16 fmap, both contractions
      rounded to bf16 (ops/roi_align.crop_and_resize in bf16);
-  2. int8 at asc[0];
+  2. int8 at the first conv's input scale, ·asc[0];
   3. four 3×3 convs over each ROI's zero-padded P×P tile: int8 GEMM with
-     int32 accumulation, ·(wsc[l]·asc[l]) + bias[l], relu, int8 at asc[l+1];
-  4. the deconv as a 1×1 int8 conv to 4·co channels, ·(wsc[4]·asc[4]) +
-     bias[4], relu, int8 at asc[5];
-  5. the class conv in bf16: bf16(y_q)·bf16(asc[5]) against bf16 wo with
+     int32 accumulation, ·wsc[l] + bias[l], relu, int8 by ·asc[l+1];
+  4. the deconv as a 1×1 int8 conv to 4·co channels, ·wsc[4] + bias[4],
+     relu, int8 by ·asc[5];
+  5. the class conv in bf16: bf16(y_q)·bf16(asc[6]) against bf16 wo with
      f32 accumulation, + bias[5], sigmoid;
   6. each ROI's class, per (di, dj) block; stored as bf16, returned as f32
      after depth-to-space → [B, K, 2P, 2P].
+
+Activation scales are per channel (a Hopper extension: the TPU kernel takes
+per-tensor scales only). `wsc[l]` is layer l's dequantize factor, its weight
+scale times its input scale — or the weight scale alone where a vector input
+scale is folded into the int8 weights (`Layer.act_folded`); rows 0-5 of `asc`
+hold the f32 inverse of each layer's input scale per input channel (the
+chained path's `f32(1) / f32(scale)`), row 6 the class conv's input scale
+itself. A per-tensor graph fills each row with one value, so both kinds of
+graph run the same code, and a per-tensor graph gives the masks it gave when
+the scales were six scalars.
 
 The weights arrive packed for the kernel (`pack_mask_weights`: K-contiguous,
 128-byte-swizzled rows); the plain version reads the same packed dict and
@@ -27,8 +37,9 @@ The kernel's GEMM tiles are 128 input channels by 256 output channels, so
 (Cf to a multiple of `CIN_TILE`, co to `CO_TILE`), and the wrapper hands the
 kernel an fmap padded with zero channels where Cf is not a multiple
 already. A zero int8 channel adds nothing to an int32 product, a padded
-output channel has zero weights, scale and bias and so stays exactly 0
-through relu and requantize, and its class-conv weight is 0: the result
+output channel has zero weights, factor and bias and so stays exactly 0
+through relu and requantize at its padded scale of 1, and its class-conv
+weight is 0: the result
 equals the true width's. At the full widths (Cf = 256, co = 256) nothing is
 padded or copied.
 
@@ -45,7 +56,7 @@ import torch
 import torch.nn.functional as F
 
 from . import _build
-from .int8 import int_mm, quantize
+from .int8 import int_mm, inv_scale
 from .roi_align import crop_and_resize
 
 _LAYER_NAMES = ["mask_conv1", "mask_conv2", "mask_conv3", "mask_conv4", "mask_deconv",
@@ -96,17 +107,20 @@ def pack_mask_weights(graph, num_classes: int):
     [4·cp, cp], swizzled K-contiguous rows (swizzle_nk of the im2col
     matrices with rows in (di, dj, ci) order and of the deconv's [cp, 4·cp],
     columns in (di, dj, o) order), wo [4·cp, 4·nc] f32 holding bf16 values
-    (block-diagonal), wsc [5, 4·cp] and bias [6, 4·cp] f32 (zero where
-    padded), asc [6] f32 activation scales. The deconv's orientation is the
-    graph's (quant._mask_layers). unpack_mask_weights gives back the plain
-    matrices at the padded widths."""
+    (block-diagonal), wsc [5, 4·cp] f32 dequantize factors (w_scale times
+    the input scale, or w_scale alone for a layer whose vector scale is
+    folded into w_q) and bias [6, 4·cp] f32 (bias + bias_corr where a layer
+    has one), both zero where padded, asc [7, max(Cp, 4·cp)] f32: rows 0-5 the
+    inverse input scale of each layer per input channel, row 6 mask_out's
+    input scale, ones where padded. The deconv's orientation is the graph's
+    (quant._mask_layers). unpack_mask_weights gives back the plain matrices
+    at the padded widths."""
     layers = graph["mask"]
     assert [l.name for l in layers] == _LAYER_NAMES
     convs, deconv, out = layers[:4], layers[4], layers[5]
-    if any(not isinstance(l.a_scale, float) for l in (*convs, deconv, out)):
-        raise NotImplementedError(
-            "the fused mask kernel takes per-tensor activation scales only "
-            "(calibrate without QUANT_PER_CHANNEL_ACT)")
+    if any(l.w_q is None for l in (*convs, deconv)):
+        raise ValueError("the fused mask kernel needs every mask conv and the deconv in int8 "
+                         "(QUANT_MASK_F32_LAYERS keeps some in bf16: use the chained layers)")
     cf = int(convs[0].kernel.shape[2])
     co = int(convs[0].kernel.shape[3])
     if co > CO_TILE:
@@ -130,14 +144,42 @@ def pack_mask_weights(graph, num_classes: int):
     wo = wo.reshape(4 * cop, 4 * nc)
     wsc = np.zeros((5, 4, cop), np.float32)
     bias = np.zeros((6, 4, cop), np.float32)
+
+    def factor(l):
+        """w_scale · s_in in f32, as quant.run_layer_int8 multiplies them."""
+        s_in = 1.0 if l.act_folded else l.a_scale
+        if np.ndim(s_in):
+            raise ValueError(f"{l.name}: a vector activation scale that is not folded into "
+                             f"w_q (quantize_weights folds it)")
+        return np.asarray(l.w_scale, np.float32) * np.float32(s_in)
+
+    def full_bias(l):
+        b = np.asarray(l.bias, np.float32)
+        return b if l.bias_corr is None else b + np.asarray(l.bias_corr, np.float32)
+
     for i, l in enumerate(convs):
-        wsc[i, 0, :co] = l.w_scale
-        bias[i, 0, :co] = l.bias
-    wsc[4, :, :co] = np.asarray(deconv.w_scale, np.float32).reshape(4, co)
-    bias[4, :, :co] = np.asarray(deconv.bias, np.float32).reshape(4, co)
+        wsc[i, 0, :co] = factor(l)
+        bias[i, 0, :co] = full_bias(l)
+    wsc[4, :, :co] = factor(deconv).reshape(4, co)
+    bias[4, :, :co] = full_bias(deconv).reshape(4, co)
     wsc, bias = wsc.reshape(5, 4 * cop), bias.reshape(6, 4 * cop)
     bias[5, :4 * nc] = out.bias
-    asc = np.asarray([l.a_scale for l in convs] + [deconv.a_scale, out.a_scale], np.float32)
+    asc = np.ones((7, max(cfp, 4 * cop)), np.float32)
+
+    def scale_row(l, width):
+        s = np.asarray(l.a_scale, np.float32)
+        if s.ndim and s.shape != (width,):
+            raise ValueError(f"{l.name}: a vector activation scale of {s.shape[0]} channels "
+                             f"for an input of {width}")
+        return np.broadcast_to(s, (width,))
+
+    asc[0, :cf] = inv_scale(scale_row(convs[0], cf))
+    for i, l in enumerate((*convs[1:], deconv), start=1):
+        asc[i, :co] = inv_scale(scale_row(l, co))
+    s5 = scale_row(out, 4 * co).reshape(4, co)
+    for blk in range(4):
+        asc[5, blk * cop:blk * cop + co] = inv_scale(s5[blk])
+        asc[6, blk * cop:blk * cop + co] = s5[blk]
     return {"w1": swizzle_nk(ws[0]), "w2": swizzle_nk(ws[1]), "w3": swizzle_nk(ws[2]),
             "w4": swizzle_nk(ws[3]), "wd": swizzle_nk(wd), "wo": wo, "wsc": wsc,
             "bias": bias, "asc": asc}
@@ -170,11 +212,9 @@ def _pad_channels(x, to: int):
 
 
 def weights_to(weights, device):
-    """pack_mask_weights' arrays as tensors on `device` (wo in bf16; asc
-    stays numpy: the kernel takes the scales as arguments)."""
-    out = {k: torch.as_tensor(v, device=device) for k, v in weights.items() if k != "asc"}
+    """pack_mask_weights' arrays as tensors on `device` (wo in bf16)."""
+    out = {k: torch.as_tensor(v, device=device) for k, v in weights.items()}
     out["wo"] = out["wo"].to(torch.bfloat16)
-    out["asc"] = np.asarray(weights["asc"], np.float32)
     return out
 
 
@@ -188,23 +228,29 @@ def _conv3x3_rois(x_q, w, pool: int):
     return int_mm(cols.reshape(-1, 9 * c), w)
 
 
+def _requantize(y, inv):
+    """int8 of f32 `y` by its per-channel inverse scales `inv` (ops/int8.quantize
+    with the inverse taken beforehand)."""
+    return torch.clamp(torch.round(y * inv), -127, 127).to(torch.int8)
+
+
 def fused_mask_branch_reference(fmap, boxes, classes, weights, pool: int, num_classes: int):
     """Plain PyTorch version of the kernel, on any device."""
     b, k = boxes.shape[:2]
-    asc = [float(s) for s in np.asarray(weights["asc"], np.float32)]
-    wsc, bias = weights["wsc"], weights["bias"]
+    wsc, bias, asc = weights["wsc"], weights["bias"], weights["asc"]
     cfp, co = packed_widths(weights)
     plain = unpack_mask_weights(weights)
     crops = crop_and_resize(fmap.to(torch.bfloat16), boxes.float(), (pool, pool)).float()
-    x_q = _pad_channels(quantize(crops.reshape(b * k * pool * pool, -1), asc[0]), cfp)
+    crops = _pad_channels(crops.reshape(b * k * pool * pool, -1), cfp)
+    x_q = _requantize(crops, asc[0, :cfp])
     for li, name in enumerate(("w1", "w2", "w3", "w4")):
         acc = _conv3x3_rois(x_q, plain[name], pool)
-        y = torch.relu(acc.float() * (wsc[li, :co] * asc[li]) + bias[li, :co])
-        x_q = quantize(y, asc[li + 1])
+        y = torch.relu(acc.float() * wsc[li, :co] + bias[li, :co])
+        x_q = _requantize(y, asc[li + 1, :co])
     acc = int_mm(x_q, plain["wd"])
-    y = torch.relu(acc.float() * (wsc[4] * asc[4]) + bias[4])
-    y_q = quantize(y, asc[5])
-    yb = y_q.to(torch.bfloat16) * torch.tensor(asc[5], dtype=torch.bfloat16)
+    y = torch.relu(acc.float() * wsc[4] + bias[4])
+    y_q = _requantize(y, asc[5, :4 * co])
+    yb = y_q.to(torch.bfloat16) * asc[6, :4 * co].to(torch.bfloat16)
     logits = yb.float() @ weights["wo"].float() + bias[5, :4 * num_classes]
     probs = torch.sigmoid(logits).reshape(b * k, pool * pool, 4, num_classes)
     cls = classes.reshape(b * k).long()[:, None, None, None].expand(-1, pool * pool, 4, 1)
@@ -215,10 +261,9 @@ def fused_mask_branch_reference(fmap, boxes, classes, weights, pool: int, num_cl
 
 def _kernel():
     fn = _build.load("fused_mask_branch").fused_mask_branch
-    # fmap, boxes, classes, w1..w4, wd, wout, wsc, bias, x0, xa, xb, out (15 pointers),
-    # B, H, W, Cf, K, P, co, nc, ld (9 ints), asc0..asc5 (6 floats), stream
-    fn.argtypes = ([ctypes.c_void_p] * 15 + [ctypes.c_int] * 9 + [ctypes.c_float] * 6
-                   + [ctypes.c_void_p])
+    # fmap, boxes, classes, w1..w4, wd, wout, wsc, bias, asc, x0, xa, xb, out
+    # (16 pointers), B, H, W, Cf, K, P, co, nc, ld, lda (10 ints), stream
+    fn.argtypes = [ctypes.c_void_p] * 16 + [ctypes.c_int] * 10 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
@@ -245,7 +290,8 @@ def fused_mask_branch(fmap, boxes, classes, weights, pool: int = 14, num_classes
               "w3": ((co, 9 * co), torch.int8), "w4": ((co, 9 * co), torch.int8),
               "wd": ((4 * co, co), torch.int8),
               "wo": ((4 * co, 4 * num_classes), torch.bfloat16),
-              "wsc": ((5, 4 * co), torch.float32), "bias": ((6, 4 * co), torch.float32)}
+              "wsc": ((5, 4 * co), torch.float32), "bias": ((6, 4 * co), torch.float32),
+              "asc": ((7, max(cf, 4 * co)), torch.float32)}
     for name, (shape, dtype) in expect.items():
         t = weights[name]
         if tuple(t.shape) != shape or t.dtype != dtype or t.device != fmap.device:
@@ -273,11 +319,12 @@ def fused_mask_branch(fmap, boxes, classes, weights, pool: int = 14, num_classes
     xa = torch.empty((m, co), dtype=torch.int8, device=fmap.device)
     xb = torch.empty((m, co), dtype=torch.int8, device=fmap.device)
     ptrs = [fmap, boxes, classes, weights["w1"], weights["w2"], weights["w3"], weights["w4"],
-            weights["wd"], wout, weights["wsc"], weights["bias"], x0, xa, xb, out]
+            weights["wd"], wout, weights["wsc"], weights["bias"], weights["asc"], x0, xa, xb,
+            out]
     with torch.cuda.device(fmap.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = _kernel()(*[t.data_ptr() for t in ptrs], b, h, w, cf, k, pool, co, num_classes,
-                       4 * co, *[float(s) for s in weights["asc"]], stream)
+                       4 * co, weights["asc"].shape[1], stream)
     if rc != 0:
         raise RuntimeError(f"fused_mask_branch kernel launch failed with CUDA error {rc}")
     fused_mask_branch.launches += 1

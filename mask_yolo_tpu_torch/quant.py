@@ -4,13 +4,22 @@ Scheme (as in the JAX package):
   * BatchNorm is folded into the preceding conv's kernel and bias.
   * Weights: symmetric per-output-channel int8, scale = absmax / 127.
   * Activations: symmetric per-tensor int8 with static scales from one
-    calibration pass (absmax of every layer's input over sample images).
+    calibration pass (absmax of every layer's input over sample images, or
+    a percentile of it with QUANT_CALIB_PCT). QUANT_PER_CHANNEL_ACT keeps
+    the per-channel absmax instead and folds the vector, split
+    SmoothQuant-style with the weights, into the int8 kernel.
   * Accumulation in int32, dequantized as acc·(w_scale·s_in) + bias in f32,
     activation, then requantized at the next layer's input scale, so the
     tensors between layers stay int8.
   * The mask deconv runs as a 1×1 conv to 4× channels plus depth-to-space;
     the class conv after it stays bf16 and consumes the (di, dj, o) layout
     block-diagonally.
+  * The quality tools: `bias_correct` (QUANT_BIAS_CORRECT) measures each
+    int8 layer's mean pre-activation error on the calibration batch and
+    adds it back through `Layer.bias_corr`; `QuantizedDetector.finetune`
+    distils the f32 graph into the int8 one with fake-quantized weights and
+    activations (straight-through rounding); QUANT_MASK_F32_LAYERS keeps
+    named mask layers in bf16.
 
 Layouts follow the JAX package: NHWC activations, HWIO kernels, numpy in
 the graph. The graph is built from a flax-layout f32 variable tree
@@ -50,7 +59,7 @@ import torch.nn.functional as F
 
 from . import pipelines
 from .ops.ds_block import fused_ds_block, pack_ds_pair
-from .ops.int8 import int_mm, quantize
+from .ops.int8 import int_mm, quantize, scale_tensor
 from .ops.mask_fused import fused_mask_branch, pack_mask_weights, weights_to
 from .ops.roi_align import crop_and_resize
 from .ops.roi_crop import crop_rois
@@ -90,8 +99,13 @@ class Layer:
     # filled by quantize_weights():
     w_q: Any = None       # int8 kernel
     w_scale: Any = None   # f32 [O]
-    a_scale: Any = 0.0    # input activation scale, a Python float
+    # input activation scale: a Python float, or an f32 [C_in] vector when
+    # QUANT_PER_CHANNEL_ACT calibrated per-channel scales
+    a_scale: Any = 0.0
+    # a vector a_scale is folded into w_q (per input channel), so the int8
+    # dequantize factor is w_scale alone
     act_folded: bool = False
+    # per-output-channel bias correction, added on the int8 path only
     bias_corr: Any = None
     # device copies of the arrays above, keyed by (field, device)
     _dev: dict = field(default_factory=dict, repr=False, compare=False)
@@ -103,14 +117,16 @@ def _tensor(layer: Layer, name: str, device, dtype=None):
     key = (name, str(device), dtype)
     hit = layer._dev.get(key)
     if hit is None or hit[0] is not arr:
-        t = torch.as_tensor(np.asarray(arr), device=device)
-        hit = (arr, t if dtype is None else t.to(dtype))
+        with torch.inference_mode(False):   # a plain tensor: finetune's autograd saves it
+            t = torch.as_tensor(np.asarray(arr), device=device)
+            hit = (arr, t if dtype is None else t.to(dtype))
         layer._dev[key] = hit
     return hit[1]
 
 
 def _scale_ok(s) -> bool:
-    """A usable activation scale (a positive scalar)?"""
+    """A usable activation scale (a positive scalar, or an all-positive
+    vector)?"""
     if isinstance(s, np.ndarray):
         return bool(s.size) and bool(np.all(s > 0))
     return bool(s and s > 0.0)
@@ -142,8 +158,7 @@ def build_layer_graph(variables, config):
         raise NotImplementedError(
             f"int8 BACKBONE={config.BACKBONE!r} (hybrid mode) "
             + _NOT_PORTED.format(9))
-    if tuple(getattr(config, "QUANT_MASK_F32_LAYERS", ()) or ()):
-        raise NotImplementedError("QUANT_MASK_F32_LAYERS " + _NOT_PORTED.format(10))
+    mask_f32 = getattr(config, "QUANT_MASK_F32_LAYERS", ()) or ()
     params = variables["params"]
     stats = variables.get("batch_stats", {})
     dw_int8 = _auto_at_320(config, "QUANT_DW_INT8")
@@ -174,28 +189,32 @@ def build_layer_graph(variables, config):
                       np.asarray(y_p["conv_23"]["bias"], np.float32),
                       (1, 1), "linear"))
     return {"trunk": trunk, "neck": neck, "yolo": yolo,
-            "mask": _mask_layers(params["mask"], stats["mask"])}
+            "mask": _mask_layers(params["mask"], stats["mask"], f32_layers=mask_f32)}
 
 
-def _mask_layers(m_p, m_s):
+def _mask_layers(m_p, m_s, f32_layers=()):
     """The folded mask-head chain. The 2×2/s2 deconv becomes a 1×1 conv to
     4·O channels in the (di, dj, o) block layout:
     y[2i+di, 2j+dj, o] = Σ_c x[i, j, c]·W[1-di, 1-dj, c, o] (flax's
     ConvTranspose), so the kernel is flipped before the reshape. The class
     conv after it is expanded block-diagonally to read that layout, and
-    depth-to-space runs on its small per-class output."""
+    depth-to-space runs on its small per-class output. f32_layers: names of
+    mask layers ('mask_conv4', 'mask_deconv', ...) to run in bf16 instead of
+    int8 (QUANT_MASK_F32_LAYERS, for localizing an int8 mask-AP cost)."""
+    f32_layers = set(f32_layers or ())
     mask = []
     for i in range(1, 5):
         k, b = fold_conv_bn(m_p[f"mask_conv{i}"]["kernel"],
                             m_p[f"mask_bn{i}"], m_s[f"mask_bn{i}"],
                             conv_bias=m_p[f"mask_conv{i}"].get("bias"))
-        mask.append(Layer(f"mask_conv{i}", "conv", k, b, (1, 1), "relu"))
+        mask.append(Layer(f"mask_conv{i}", "conv", k, b, (1, 1), "relu",
+                          quantize=f"mask_conv{i}" not in f32_layers))
     dk = np.asarray(m_p["mask_deconv"]["kernel"], np.float32)[::-1, ::-1]  # [2, 2, C, O]
     kh, kw, ci, co = dk.shape
     dk_1x1 = np.ascontiguousarray(dk.transpose(2, 0, 1, 3)).reshape(1, 1, ci, kh * kw * co)
     mask.append(Layer("mask_deconv", "conv", dk_1x1,
                       np.tile(np.asarray(m_p["mask_deconv"]["bias"], np.float32), kh * kw),
-                      (1, 1), "relu"))
+                      (1, 1), "relu", quantize="mask_deconv" not in f32_layers))
     ok = np.asarray(m_p["mask_out"]["kernel"], np.float32)  # [1, 1, O, C]
     nc = ok.shape[-1]
     ok_block = np.zeros((1, 1, kh * kw * co, kh * kw * nc), np.float32)
@@ -272,11 +291,29 @@ def _depth_to_space2(y):
     return y.reshape(b, h, w, 2, 2, o).permute(0, 1, 3, 2, 4, 5).reshape(b, 2 * h, 2 * w, o)
 
 
-def run_layer_f32(layer: Layer, x, collect=None):
+def _percentile(values, pct: float):
+    """The pct-th percentile of a tensor's values, interpolated linearly
+    between the two nearest order statistics (numpy's and jnp.quantile's
+    default). By sorting: torch.quantile refuses inputs above 16 M elements,
+    and an early layer's input at 416² is larger."""
+    flat = values.float().reshape(-1).sort().values
+    pos = pct / 100.0 * (flat.numel() - 1)
+    lo = int(np.floor(pos))
+    hi = min(lo + 1, flat.numel() - 1)
+    frac = float(pos - lo)
+    return flat[lo] * (1.0 - frac) + flat[hi] * frac
+
+
+def run_layer_f32(layer: Layer, x, collect=None, calib_pct: float = 100.0):
     """f32 execution of one folded layer; with `collect`, also appends
-    (name, absmax of the input) for calibration."""
+    (name, range of the input) for calibration: the per-channel absmax
+    vector (calibrate reduces it to a scalar unless QUANT_PER_CHANNEL_ACT
+    keeps it), or with calib_pct < 100 that percentile of |x| over the whole
+    tensor, a scalar."""
     if collect is not None:
-        collect.append((layer.name, x.abs().amax()))
+        ax = x.abs()
+        collect.append((layer.name, ax.amax(dim=tuple(range(ax.dim() - 1)))
+                        if calib_pct >= 100.0 else _percentile(ax, calib_pct)))
     y = _conv_f32(x, _tensor(layer, "kernel", x.device, torch.float32),
                   layer.strides, layer.groups) + _tensor(layer, "bias", x.device, torch.float32)
     y = _ACTS[layer.act](y)
@@ -302,7 +339,8 @@ def run_layer_int8(layer: Layer, x, x_scale=None, out_scale=None):
     else:
         # bf16 layer: bf16 operands, f32 accumulation and result
         if x_scale is not None:
-            x = x.float() * float(np.float32(x_scale))
+            x = x.float() * (scale_tensor(x_scale, dev) if isinstance(x_scale, np.ndarray)
+                             else float(np.float32(x_scale)))
         xb = x.to(torch.bfloat16).float()
         k = _tensor(layer, "kernel", dev, torch.bfloat16).float()
         y = _conv_f32(xb, k, layer.strides, layer.groups) + _tensor(layer, "bias", dev,
@@ -329,26 +367,27 @@ def _fusable_ds_pair(layer, nxt, x_scale):
 
 
 def _packed_ds_pair(layer, nxt, scale, device):
-    """pack_ds_pair's operands on `device`, cached on the dw layer."""
+    """pack_ds_pair's operands on `device`, cached on the dw layer while the
+    arrays it packed (int8 kernels, bias corrections) stay the layers':
+    bias_correct and finetune replace them, which drops the entry."""
     key = ("ds_pack", str(device))
     hit = layer._dev.get(key)
-    if (hit is None or hit[0] != scale or hit[1] is not layer.w_q
-            or hit[2] is not nxt.w_q):
+    src = (layer.w_q, nxt.w_q, layer.bias_corr, nxt.bias_corr)
+    if hit is None or hit[0] != scale or any(a is not b for a, b in zip(hit[1], src)):
         arrays = pack_ds_pair(layer, nxt, scale)
-        hit = (scale, layer.w_q, nxt.w_q,
-               [torch.as_tensor(a, device=device) for a in arrays])
+        hit = (scale, src, [torch.as_tensor(a, device=device) for a in arrays])
         layer._dev[key] = hit
-    return hit[3]
+    return hit[2]
 
 
 def run_layers(layers, x, quant: bool, collect=None, fused_ds: bool = False,
-               x_scale=None, out_scale=None):
+               calib_pct: float = 100.0, x_scale=None, out_scale=None):
     """Run a layer chain. x_scale: scale of an already-int8 `x`; out_scale:
     requantize the final output to int8 at it."""
     if not quant:
         assert x_scale is None and out_scale is None
         for layer in layers:
-            x = run_layer_f32(layer, x, collect)
+            x = run_layer_f32(layer, x, collect, calib_pct)
         return x
     scale = x_scale
     i = 0
@@ -379,7 +418,8 @@ def run_layers(layers, x, quant: bool, collect=None, fused_ds: bool = False,
     return x
 
 
-def _trunk_outputs(graph, images, quant: bool, collect=None, fused_ds: bool = False):
+def _trunk_outputs(graph, images, quant: bool, collect=None, fused_ds: bool = False,
+                   calib_pct: float = 100.0):
     """(raw yolo output, fmap). With int8 on both consumers at one scale,
     the trunk hands C4 over in int8 once (the JAX package's C4 hand-off)."""
     shared = None
@@ -391,14 +431,15 @@ def _trunk_outputs(graph, images, quant: bool, collect=None, fused_ds: bool = Fa
                 and na.act_folded == ya.act_folded):
             shared = na.a_scale
     c4 = run_layers(graph["trunk"], images, quant, collect, fused_ds=fused_ds,
-                    out_scale=shared)
-    fmap = run_layers(graph["neck"], c4, quant, collect, x_scale=shared)
-    raw = run_layers(graph["yolo"], c4, quant, collect, fused_ds=fused_ds, x_scale=shared)
+                    calib_pct=calib_pct, out_scale=shared)
+    fmap = run_layers(graph["neck"], c4, quant, collect, calib_pct=calib_pct, x_scale=shared)
+    raw = run_layers(graph["yolo"], c4, quant, collect, fused_ds=fused_ds,
+                     calib_pct=calib_pct, x_scale=shared)
     return raw, fmap
 
 
 def _mask_outputs(graph, rois, fmap, pool_size: int, num_classes: int, quant: bool,
-                  collect=None):
+                  collect=None, calib_pct: float = 100.0):
     """[B, R, 2p, 2p, num_classes] sigmoid masks from one feature map. The
     int8 path crops the bf16 fmap through K2; calibration crops in f32."""
     if isinstance(fmap, (tuple, list)):
@@ -410,7 +451,7 @@ def _mask_outputs(graph, rois, fmap, pool_size: int, num_classes: int, quant: bo
     else:
         x = crop_and_resize(fmap.float(), rois.float(), (pool_size, pool_size))
     x = x.float().reshape(b * r, pool_size, pool_size, x.shape[-1])
-    x = run_layers(graph["mask"], x, quant, collect)
+    x = run_layers(graph["mask"], x, quant, collect, calib_pct=calib_pct)
     side = 2 * pool_size
     return x.reshape(b, r, side, side, num_classes)
 
@@ -423,33 +464,69 @@ _CALIB_ROIS = np.asarray([[0.0, 0.0, 1.0, 1.0], [0.1, 0.1, 0.6, 0.6],
                           [0.4, 0.4, 0.9, 0.9], [0.25, 0.25, 0.75, 0.75]], np.float32)
 
 
+def _default_rois(n: int):
+    return np.tile(_CALIB_ROIS[None], (n, 1, 1))
+
+
 @torch.inference_mode()
 def calibrate(graph, config, images, rois=None):
     """One f32 forward over calibration images (a float tensor [N, H, W, 3]
-    in [0, 1]); sets each layer's a_scale to absmax / 127 as a Python float.
-    rois: [N, R, 4] normalized boxes for the mask branch (default: four
-    spread boxes)."""
-    if bool(getattr(config, "QUANT_PER_CHANNEL_ACT", False)):
-        raise NotImplementedError("QUANT_PER_CHANNEL_ACT " + _NOT_PORTED.format(10))
-    if float(getattr(config, "QUANT_CALIB_PCT", 100.0) or 100.0) < 100.0:
-        raise NotImplementedError("QUANT_CALIB_PCT < 100 " + _NOT_PORTED.format(10))
+    in [0, 1]); sets each layer's a_scale. rois: [N, R, 4] normalized boxes
+    for the mask branch (default: four spread boxes).
+
+    Per tensor (the default): absmax / 127, or with QUANT_CALIB_PCT < 100
+    that percentile of |x| / 127, as a Python float. With
+    QUANT_PER_CHANNEL_ACT (absmax only) the per-channel absmax vector stays:
+    a quantized layer takes the SmoothQuant split r_c = a_c^α / w_c^(1-α)
+    (Xiao et al. 2022; α = QUANT_SMOOTH_ALPHA, default 0.5, w_c the kernel's
+    absmax over input channel c) scaled so the largest a_c / r_c lands on
+    127; folding the whole activation range into the kernel would only
+    move the imbalance into the weight grid. A bf16 layer, whose scale only
+    stores its input as int8, takes the exact a_c / 127. Dead channels
+    (absmax 0) take the median live scale, so they cannot dominate the
+    folded kernel's per-output-channel absmax. The split is computed in
+    numpy, in the JAX package's dtypes."""
+    pct = float(getattr(config, "QUANT_CALIB_PCT", 100.0) or 100.0)
+    per_ch = bool(getattr(config, "QUANT_PER_CHANNEL_ACT", False)) and pct >= 100.0
     if rois is None:
-        rois = np.tile(_CALIB_ROIS[None], (images.shape[0], 1, 1))
+        rois = _default_rois(images.shape[0])
     rois = torch.as_tensor(rois, device=images.device)
     collect = []
-    _, fmap = _trunk_outputs(graph, images, quant=False, collect=collect)
+    _, fmap = _trunk_outputs(graph, images, quant=False, collect=collect, calib_pct=pct)
     _mask_outputs(graph, rois, fmap, config.MASK_POOL_SIZE, config.NUM_CLASSES,
-                  quant=False, collect=collect)
-    absmax = {name: float(v.item()) for name, v in collect}
+                  quant=False, collect=collect, calib_pct=pct)
+    stats = {name: np.asarray(v.cpu().numpy(), np.float32) for name, v in collect}
+    alpha = float(getattr(config, "QUANT_SMOOTH_ALPHA", 0.5))
     for part in graph.values():
         for layer in part or ():
-            if layer.name in absmax:
-                layer.a_scale = absmax[layer.name] / 127.0 or 1.0
+            if layer.name not in stats:
+                continue
+            v = stats[layer.name]
+            if not (per_ch and v.ndim == 1):
+                layer.a_scale = float(v.max()) / 127.0 or 1.0
+                continue
+            if layer.quantize:
+                k = np.abs(np.asarray(layer.kernel, np.float32))
+                ax = k.ndim - 1 if layer.kind == "dw" else k.ndim - 2
+                w_c = np.moveaxis(k, ax, 0).reshape(k.shape[ax], -1).max(axis=1)
+                a_c = np.maximum(v, 1e-12)
+                w_c = np.maximum(w_c, 1e-12)
+                r = a_c ** alpha / w_c ** (1.0 - alpha)
+                s = r * (float(np.max(a_c / r)) / 127.0)
+            else:
+                s = v / 127.0
+            pos = s[v > 0]
+            fill = float(np.median(pos)) if pos.size else 1.0
+            layer.a_scale = np.where(v > 0, s, fill).astype(np.float32)
     return graph
 
 
 def quantize_weights(graph):
-    """Symmetric per-output-channel int8 weights for quantizable layers."""
+    """Symmetric per-output-channel int8 weights for quantizable layers. A
+    vector a_scale folds into the kernel first: y = Σ_ci W[.., ci, co]·
+    (x_q[.., ci]·s_ci) = Σ_ci (W·s_ci)[.., ci, co]·x_q[.., ci], so the int8
+    product and its per-output-channel dequantize stay as they are and the
+    input's factor becomes exactly 1."""
     for part in graph.values():
         for layer in part or ():
             if layer.quantize:
@@ -458,11 +535,111 @@ def quantize_weights(graph):
 
 
 def _quantize_layer_kernel(layer, k):
-    """Set layer.w_q / w_scale from the f32 kernel `k` (HWIO)."""
+    """Set layer.w_q / w_scale from the f32 kernel `k` (HWIO), folding a
+    vector a_scale along the input-channel axis first: the trailing axis of
+    a depthwise [kh, kw, 1, C], whose output channel c reads input channel
+    c only."""
+    if isinstance(layer.a_scale, np.ndarray):
+        k = k * layer.a_scale.reshape((1, 1, 1, -1) if layer.kind == "dw" else (1, 1, -1, 1))
+        layer.act_folded = True
     absmax = np.abs(k).reshape(-1, k.shape[-1]).max(axis=0)
     scale = np.where(absmax > 0, absmax / 127.0, 1.0).astype(np.float32)
     layer.w_q = np.clip(np.round(k / scale), -127, 127).astype(np.int8)
     layer.w_scale = scale
+
+
+def _int8_layer(layer) -> bool:
+    """Does run_layer_int8 run this layer's product in int8?"""
+    return layer.quantize and layer.w_q is not None and _scale_ok(layer.a_scale)
+
+
+@torch.inference_mode()
+def bias_correct(graph, config, images, rois=None):
+    """Per-output-channel bias correction (Nagel et al. 2019, "Data-Free
+    Quantization Through Weight Equalization and Bias Correction", §5), after
+    quantize_weights. For every int8 layer the mean pre-activation error
+    E[conv_f32(x) − deq(conv_int8(quant(x)))] over the calibration batch,
+    with x from the exact f32 forward (each layer is corrected on its own,
+    errors do not compound), lands in layer.bias_corr, which the int8 path
+    adds and the f32 path ignores. images: float tensor [N, H, W, 3] in
+    [0, 1]; rois as in calibrate."""
+    if rois is None:
+        rois = _default_rois(images.shape[0])
+    rois = torch.as_tensor(rois, device=images.device).float()
+
+    def correct_chain(layers, x):
+        for layer in layers:
+            if _int8_layer(layer):
+                dev = x.device
+                y_f = _conv_f32(x, _tensor(layer, "kernel", dev, torch.float32),
+                                layer.strides, layer.groups)
+                s_in = 1.0 if layer.act_folded else layer.a_scale
+                y_q = _conv_int8(quantize(x, layer.a_scale), _tensor(layer, "w_q", dev),
+                                 layer.strides, layer.groups).float() * (
+                    _tensor(layer, "w_scale", dev, torch.float32) * float(np.float32(s_in)))
+                layer.bias_corr = (y_f - y_q).mean(dim=(0, 1, 2)).cpu().numpy()
+            x = run_layer_f32(layer, x)
+        return x
+
+    c4 = correct_chain(graph["trunk"], images)
+    fmap = correct_chain(graph["neck"], c4)
+    correct_chain(graph["yolo"], c4)
+    pool = config.MASK_POOL_SIZE
+    x = crop_and_resize(fmap.float(), rois, (pool, pool))
+    correct_chain(graph["mask"], x.reshape(-1, pool, pool, x.shape[-1]))
+    return graph
+
+
+# ---------------------------------------------------------------------------
+# Quantization-aware fine-tuning (distillation, no labels)
+# ---------------------------------------------------------------------------
+
+
+def _fq(v, s):
+    """Quantize → dequantize at scale `s` (a float, a numpy vector over the
+    last axis, or a tensor) with a straight-through gradient: autograd does
+    not see the round and clip."""
+    if isinstance(s, np.ndarray):
+        s = scale_tensor(s, v.device)
+    q = torch.clamp(torch.round(v / s), -127, 127) * s
+    return v + (q - v).detach()
+
+
+def _fq_kernel(k, layer):
+    """The f32 kernel the int8 path realizes from `k`: fold a vector a_scale,
+    fake-quantize at per-output-channel scales, unfold. The scales are
+    recomputed from the current kernel (outside autograd), so absmax follows
+    the weights as they drift."""
+    fold = None
+    if isinstance(layer.a_scale, np.ndarray):
+        fold = scale_tensor(layer.a_scale, k.device).reshape(
+            (1, 1, 1, -1) if layer.kind == "dw" else (1, 1, -1, 1))
+        k = k * fold
+    s = k.detach().abs().amax(dim=(0, 1, 2), keepdim=True).clamp_min(1e-12) / 127.0
+    k = _fq(k, s)
+    return k if fold is None else k / fold
+
+
+def _run_layers_fq(layers, x, params):
+    """f32 forward with fake-quantized weights and activations on the layers
+    the int8 path quantizes: the differentiable simulation of
+    run_layers(quant=True). params: {layer.name: {"kernel", "bias"}}
+    trainable tensors (HWIO kernels) that override the layer's own."""
+    for layer in layers:
+        p = params.get(layer.name)
+        k = p["kernel"] if p else _tensor(layer, "kernel", x.device, torch.float32)
+        b = p["bias"] if p else _tensor(layer, "bias", x.device, torch.float32)
+        if _int8_layer(layer):
+            x = _fq(x, layer.a_scale)
+            k = _fq_kernel(k, layer)
+        x = _ACTS[layer.act](_conv_f32(x, k, layer.strides, layer.groups) + b)
+        if layer.kind == "out_d2s":
+            x = _depth_to_space2(x)
+    return x
+
+
+def _nmse(x, t):
+    return ((x - t) ** 2).mean() / ((t ** 2).mean() + 1e-8)
 
 
 # ---------------------------------------------------------------------------
@@ -474,10 +651,12 @@ class QuantizedDetector:
     """int8 detect pipeline with the outputs of pipelines.detect_outputs
     (decode, NMS, top-K and paste stay f32)."""
 
-    def __init__(self, graph, config):
+    def __init__(self, graph, config, device=None):
         self.graph = graph
         self.config = config
-        self._mask_weights = {}   # device → K3's packed weights
+        self.device = None if device is None else torch.device(device)
+        self.finetune_result = None   # the last finetune's {"loss_initial", "loss_final"}
+        self._mask_weights = {}   # device → (the arrays packed, K3's packed weights)
 
     @classmethod
     def from_variables(cls, variables, config, calib_images, device="cuda"):
@@ -487,17 +666,107 @@ class QuantizedDetector:
         device = torch.device(device)
         if device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("device='cuda' requested but no CUDA device is available")
-        if bool(getattr(config, "QUANT_BIAS_CORRECT", False)):
-            raise NotImplementedError("QUANT_BIAS_CORRECT " + _NOT_PORTED.format(10))
         graph = build_layer_graph(variables, config)
         images = torch.as_tensor(np.asarray(calib_images, np.float32)
                                  if not torch.is_tensor(calib_images) else calib_images,
                                  device=device).float()
-        graph = calibrate(graph, config, images)
-        return cls(quantize_weights(graph), config)
+        graph = quantize_weights(calibrate(graph, config, images))
+        if bool(getattr(config, "QUANT_BIAS_CORRECT", False)):
+            graph = bias_correct(graph, config, images)
+        return cls(graph, config, device=device)
 
-    def finetune(self, *args, **kwargs):
-        raise NotImplementedError("quantization-aware finetune " + _NOT_PORTED.format(10))
+    def finetune(self, images, rois=None, steps: int = 200, lr: float = 1e-5, seed: int = 0):
+        """Quantization-aware fine-tuning by distillation, without labels.
+
+        Tunes the int8 layers' kernels and biases so that the int8 forward
+        matches the f32 teacher's outputs (raw grid, feature map, mask
+        probabilities) on `images` ([N, H, W, 3] float in [0, 1]), with the
+        straight-through fake quantization inside the loss; the normalized
+        MSE of the three, the mask term weighted by QUANT_QAT_MASK_WEIGHT.
+        Adam at `lr` with optax's defaults (betas 0.9 / 0.999, eps 1e-8, no
+        weight decay) on leaf tensors on the detector's device; the student's
+        crop goes through ops/roi_crop.crop_rois, so on the card K2 runs
+        forward and backward. The best point observed is kept, the last
+        update included. `seed` is the JAX package's parameter; nothing
+        random is drawn.
+
+        The result goes only into the int8 graph: tuned kernels requantize
+        into w_q / w_scale, tuned biases land in bias_corr; the f32 layers
+        keep the exact weights. Returns {"loss_initial", "loss_final"}."""
+        del seed
+        graph, cfg = self.graph, self.config
+        if not torch.is_tensor(images):
+            images = torch.from_numpy(np.ascontiguousarray(images))
+        # on the detector's device (the images' own for one built without)
+        images = images.to(self.device or images.device).float()
+        dev = images.device
+        if rois is None:
+            rois = _default_rois(images.shape[0])
+        rois = torch.as_tensor(rois, device=dev).float().contiguous()
+        pool = cfg.MASK_POOL_SIZE
+
+        def crop(fmap):
+            x = crop_rois(fmap.float().contiguous(), rois, pool)
+            return x.reshape(-1, pool, pool, x.shape[-1])
+
+        with torch.no_grad():
+            raw_t, fmap_t = _trunk_outputs(graph, images, quant=False)
+            mask_t = run_layers(graph["mask"], crop(fmap_t), quant=False)
+
+        tuned = [l for part in graph.values() for l in part or ()
+                 if l.quantize and l.w_q is not None]
+        if not tuned:
+            self.finetune_result = {"loss_initial": 0.0, "loss_final": 0.0}
+            return self.finetune_result
+        params = {}
+        for l in tuned:
+            bias = np.asarray(l.bias, np.float32)
+            if l.bias_corr is not None:
+                bias = bias + l.bias_corr
+            params[l.name] = {
+                "kernel": torch.tensor(np.asarray(l.kernel, np.float32), device=dev,
+                                       requires_grad=True),
+                "bias": torch.tensor(bias, device=dev, requires_grad=True)}
+        leaves = [t for p in params.values() for t in p.values()]
+        mw = float(getattr(cfg, "QUANT_QAT_MASK_WEIGHT", 1.0) or 1.0)
+
+        def loss_fn():
+            c4 = _run_layers_fq(graph["trunk"], images, params)
+            fmap = _run_layers_fq(graph["neck"], c4, params)
+            raw = _run_layers_fq(graph["yolo"], c4, params)
+            mask = _run_layers_fq(graph["mask"], crop(fmap), params)
+            return _nmse(raw, raw_t) + _nmse(fmap, fmap_t) + mw * _nmse(mask, mask_t)
+
+        opt = torch.optim.Adam(leaves, lr=lr, betas=(0.9, 0.999), eps=1e-8, weight_decay=0.0)
+        snapshot = lambda: [t.detach().clone() for t in leaves]   # noqa: E731
+        loss0, best = None, (np.inf, None)
+        for _ in range(int(steps)):
+            opt.zero_grad(set_to_none=True)
+            loss = loss_fn()
+            loss.backward()
+            value = float(loss.detach())   # the loss at the point before this update
+            if loss0 is None:
+                loss0 = value
+            if value < best[0]:
+                best = (value, snapshot())
+            opt.step()
+        with torch.no_grad():            # the last update's point is unscored so far
+            final = float(loss_fn())
+        if final < best[0]:
+            best = (final, snapshot())
+        loss, values = best
+        if loss0 is None:
+            loss0 = loss
+
+        with torch.no_grad():
+            for leaf, value in zip(leaves, values):
+                leaf.copy_(value)
+        for l in tuned:
+            p = params[l.name]
+            _quantize_layer_kernel(l, p["kernel"].detach().cpu().numpy())
+            l.bias_corr = p["bias"].detach().cpu().numpy() - np.asarray(l.bias, np.float32)
+        self.finetune_result = {"loss_initial": loss0, "loss_final": loss}
+        return self.finetune_result
 
     def infer_yolo_fn(self, fused_ds: bool | None = None):
         """images → infer_yolo outputs on the int8 trunk (fused_ds None:
@@ -533,12 +802,17 @@ class QuantizedDetector:
                              self.config.NUM_CLASSES, quant)
 
     def fused_mask(self, rois, fmap, classes):
-        """K3: each ROI's class mask [B, R, 2p, 2p] from one kernel call."""
+        """K3: each ROI's class mask [B, R, 2p, 2p] from one kernel call. The
+        packed weights are kept while the arrays they were packed from stay
+        the mask layers' (bias_correct and finetune replace them)."""
         key = str(fmap.device)
-        if key not in self._mask_weights:
-            self._mask_weights[key] = weights_to(
-                pack_mask_weights(self.graph, self.config.NUM_CLASSES), fmap.device)
-        return fused_mask_branch(fmap, rois, classes, self._mask_weights[key],
+        src = [a for l in self.graph["mask"] for a in (l.w_q, l.w_scale, l.bias_corr, l.a_scale)]
+        hit = self._mask_weights.get(key)
+        if hit is None or any(a is not b for a, b in zip(hit[0], src)):
+            hit = (src, weights_to(pack_mask_weights(self.graph, self.config.NUM_CLASSES),
+                                   fmap.device))
+            self._mask_weights[key] = hit
+        return fused_mask_branch(fmap, rois, classes, hit[1],
                                  pool=self.config.MASK_POOL_SIZE,
                                  num_classes=self.config.NUM_CLASSES)
 

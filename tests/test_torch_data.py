@@ -310,8 +310,12 @@ def test_generator_skips_a_failing_image_and_gives_up_after_the_limit():
     with pytest.raises(RuntimeError, match="bad image"):
         next(pipeline.data_generator(ds, cfg, shuffle=False, augmentation=always, workers=0,
                                      error_limit=2))
-    with pytest.raises(NotImplementedError, match="#5"):
-        next(pipeline.data_generator(ds, cfg, norm=False))
+    # norm=False: the debug mode, 0..255 float images with the GT boxes drawn
+    drawn = next(pipeline.data_generator(ds, cfg, shuffle=False, norm=False, workers=0))
+    plain = next(pipeline.data_generator(ds, cfg, shuffle=False, workers=0))
+    assert drawn["image"].dtype == np.float32 and plain["image"].dtype == np.uint8
+    assert (drawn["image"] != plain["image"]).any()
+    np.testing.assert_array_equal(drawn["yolo_target"], plain["yolo_target"])
     with pytest.raises(ValueError, match="DATA_WORKER_MODE"):
         next(pipeline.data_generator(ds, port_config(ShapesTiny(), DATA_WORKER_MODE="fiber"),
                                      workers=2))

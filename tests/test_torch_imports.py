@@ -78,3 +78,35 @@ def test_importing_the_port_builds_nothing_and_starts_no_process():
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
                           text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
+
+
+# the host-side modules of the datasets, the anchors, the drawing and the
+# Keras-h5 interop
+HOST_SLICE = ("utils.anchors", "utils.visualize", "utils.keras_h5", "data.dense_shapes",
+              "data.coco", "data.via")
+OPTIONAL = ("h5py", "matplotlib", "PIL")
+
+
+@pytest.mark.parametrize("name", HOST_SLICE)
+def test_host_module_is_covered(name):
+    assert ROOT / "mask_yolo_tpu_torch" / (name.replace(".", "/") + ".py") in PORT_FILES
+
+
+def test_importing_the_port_pulls_in_no_optional_package():
+    """h5py, matplotlib and PIL are imported inside the functions that need
+    them: importing every module of the port, and chip_smoke.py, works with
+    all three blocked (the machine with the GPU has none of them)."""
+    code = (
+        "import sys\n"
+        f"for name in {OPTIONAL + BANNED!r}:\n"
+        "    sys.modules[name] = None\n"
+        "import importlib, pkgutil\n"
+        "import mask_yolo_tpu_torch, chip_smoke\n"
+        "for m in pkgutil.walk_packages(mask_yolo_tpu_torch.__path__, 'mask_yolo_tpu_torch.'):\n"
+        "    importlib.import_module(m.name)\n"
+        f"print([n for n in sys.modules if n.split('.')[0] in {OPTIONAL!r}\n"
+        "       and sys.modules[n] is not None])\n")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
+                          text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == "[]"

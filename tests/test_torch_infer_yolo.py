@@ -181,7 +181,7 @@ def test_model_infer_yolo_returns_the_jax_models_boxes(tiny, tmp_path):
     jmodel.params, jmodel.batch_stats = variables["params"], variables["batch_stats"]
     model = _port_model(pcfg, variables)
     want = jmodel.infer_yolo(images[0], display=False)
-    got = model.infer_yolo(images[0])
+    got = model.infer_yolo(images[0], display=False)
     assert len(got) == len(want) > 0
     for g, w in zip(got, want):
         assert isinstance(g, BoundBox) and g.get_label() == w.get_label()
@@ -189,21 +189,22 @@ def test_model_infer_yolo_returns_the_jax_models_boxes(tiny, tmp_path):
                                    [w.xmin, w.ymin, w.xmax, w.ymax, w.get_score()],
                                    rtol=1e-5, atol=1e-5)
         assert g["label"] == g.label
-    with pytest.raises(NotImplementedError, match="#5"):
-        model.infer_yolo(images[0], display=True)
-    with pytest.raises(NotImplementedError, match="#5"):
-        model.detect(images[0], display=True)
+    # display=True is the default, as in the JAX package: both draw a figure
+    model.infer_yolo(images[0], save_path=str(tmp_path / "yolo"))
+    model.detect(images[0], save_path=str(tmp_path / "det"), cs_threshold=0.0)
+    assert [p.name[:9] for p in (tmp_path / "yolo").iterdir()] == ["InferYOLO"]
+    assert [p.name[:13] for p in (tmp_path / "det").iterdir()] == ["InferMaskYOLO"]
     with pytest.raises(ValueError):
         model.infer_yolo(images[0].astype(np.float32))
 
     # after quantize() infer_yolo serves the int8 trunk; a weight change drops it
     model.quantize(images)
     q = model._qdet.infer_yolo_outputs(torch.tensor(images[:1]))
-    served = model.infer_yolo(images[0])
+    served = model.infer_yolo(images[0], display=False)
     assert len(served) == int(q["valid"].sum())
     path = str(tmp_path / "w.pt")
     model.save_weights(path)
-    again = model.infer_yolo(images[0], weights_dir=path)    # load_weights drops the detector
+    again = model.infer_yolo(images[0], weights_dir=path, display=False)    # drops the detector
     assert model._qdet is None and len(again) == len(got)
     # detect takes the JAX package's parameters in its order
     res = model.detect(images[0], path, str(tmp_path), 0.0)[0]

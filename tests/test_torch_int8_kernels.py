@@ -139,16 +139,31 @@ def _close(got, ref):
 
 def test_mask_weights_pack_like_jax(mask_setup):
     """The same operands as the JAX package packs, once the swizzled
-    K-contiguous GEMM weights are unpacked (wo as bf16 values; the port
-    keeps the six activation scales without the TPU's padding)."""
+    K-contiguous GEMM weights are unpacked (wo as bf16 values). The port's
+    scales are per channel: wsc is the JAX package's weight scale times the
+    layer's input scale (the f32 product both kernels take), and asc holds,
+    a row a layer, the f32 inverse of the input scale repeated over the
+    layer's input channels (ones where padded), then mask_out's scale."""
     _, _, fmap, jw, pw = mask_setup
     assert jw.keys() == pw.keys()
     plain = mask_fused.unpack_mask_weights(mask_fused.weights_to(pw, "cpu"), fmap.shape[-1])
+    asc = np.asarray(jw["asc"], np.float32).reshape(-1)[:6]
     for key in jw:
-        want = np.asarray(jnp.asarray(jw[key], jnp.float32)).reshape(-1)
+        want = np.asarray(jnp.asarray(jw[key], jnp.float32))
+        if key == "asc":
+            continue
+        if key == "wsc":
+            want = want * asc[:5, None]
         got = plain[key].numpy() if key in plain else pw[key]
         np.testing.assert_array_equal(np.asarray(got, np.float32).reshape(-1),
-                                      want[:6] if key == "asc" else want, err_msg=key)
+                                      want.reshape(-1), err_msg=key)
+    cf, co = fmap.shape[-1], 256
+    assert pw["asc"].shape == (7, 4 * co) and pw["asc"].dtype == np.float32
+    inv = np.float32(1.0) / asc
+    for row, width in zip(range(6), (cf, co, co, co, co, 4 * co)):
+        np.testing.assert_array_equal(pw["asc"][row, :width], np.full(width, inv[row]))
+        np.testing.assert_array_equal(pw["asc"][row, width:], 1.0)
+    np.testing.assert_array_equal(pw["asc"][6], np.full(4 * co, asc[5]))
 
 
 def _mask_graph(rng, cf, co, nc):
@@ -268,13 +283,180 @@ def test_mask_checks_inputs(mask_setup):
         mask_fused.fused_mask_branch(f, bx, cl, w, 4, 5)
 
 
+def _copy_mask_graph(det):
+    return {"mask": [quant.Layer(**{f: getattr(l, f) for f in weights._LAYER_FIELDS})
+                     for l in det.graph["mask"]]}
+
+
 def test_mask_pack_refuses_vector_scales(mask_setup):
+    """Vector scales pack (test_mask_plain_vector_scales_match_chained); what
+    the packer refuses is a vector that is not folded into w_q, one of the
+    wrong length, and a mask layer that QUANT_MASK_F32_LAYERS kept in bf16."""
     _, det, *_ = mask_setup
-    graph = {"mask": [quant.Layer(**{f: getattr(l, f) for f in weights._LAYER_FIELDS})
-                      for l in det.graph["mask"]]}
+    graph = _copy_mask_graph(det)
     graph["mask"][2].a_scale = np.full(256, 0.01, np.float32)
-    with pytest.raises(NotImplementedError, match="per-tensor"):
+    with pytest.raises(ValueError, match="not folded"):
         mask_fused.pack_mask_weights(graph, JaxQ.NUM_CLASSES)
+    graph["mask"][2].act_folded = True
+    graph["mask"][2].a_scale = np.full(7, 0.01, np.float32)
+    with pytest.raises(ValueError, match="7 channels"):
+        mask_fused.pack_mask_weights(graph, JaxQ.NUM_CLASSES)
+    graph = _copy_mask_graph(det)
+    graph["mask"][3].w_q = None
+    with pytest.raises(ValueError, match="int8"):
+        mask_fused.pack_mask_weights(graph, JaxQ.NUM_CLASSES)
+
+
+def _six_scalar_plain(fmap, boxes, classes, graph, pool, nc):
+    """K3's plain version as it stood while the kernel took six scalar
+    activation scales: ·(w_scale·asc[l]) in each epilogue, requantize at
+    1/asc[l+1], the class conv on bf16(y_q)·bf16(asc[5]). At the packed
+    (zero-padded) widths, on the same unpacked matrices."""
+    from mask_yolo_tpu_torch.ops.int8 import int_mm, quantize
+    from mask_yolo_tpu_torch.ops.roi_align import crop_and_resize
+
+    layers = graph["mask"]
+    w = mask_fused.weights_to(mask_fused.pack_mask_weights(graph, nc), "cpu")
+    cfp, cop = mask_fused.packed_widths(w)
+    plain = mask_fused.unpack_mask_weights(w)
+    co = layers[0].kernel.shape[3]
+    asc = [float(np.float32(l.a_scale)) for l in layers]
+    wsc = torch.zeros((5, 4, cop))
+    for i in range(4):
+        wsc[i, 0, :co] = torch.tensor(layers[i].w_scale)
+    wsc[4, :, :co] = torch.tensor(layers[4].w_scale).reshape(4, co)
+    wsc = wsc.reshape(5, 4 * cop)
+    b, k = boxes.shape[:2]
+    crops = crop_and_resize(fmap.to(torch.bfloat16), boxes.float(), (pool, pool)).float()
+    x_q = mask_fused._pad_channels(quantize(crops.reshape(b * k * pool * pool, -1), asc[0]), cfp)
+    for li, name in enumerate(("w1", "w2", "w3", "w4")):
+        acc = mask_fused._conv3x3_rois(x_q, plain[name], pool)
+        y = torch.relu(acc.float() * (wsc[li, :cop] * asc[li]) + w["bias"][li, :cop])
+        x_q = quantize(y, asc[li + 1])
+    acc = int_mm(x_q, plain["wd"])
+    y = torch.relu(acc.float() * (wsc[4] * asc[4]) + w["bias"][4])
+    yb = quantize(y, asc[5]).to(torch.bfloat16) * torch.tensor(asc[5], dtype=torch.bfloat16)
+    logits = yb.float() @ w["wo"].float() + w["bias"][5, :4 * nc]
+    probs = torch.sigmoid(logits).reshape(b * k, pool * pool, 4, nc)
+    cls = classes.reshape(b * k).long()[:, None, None, None].expand(-1, pool * pool, 4, 1)
+    sel = torch.gather(probs, -1, cls)[..., 0].to(torch.bfloat16).float()
+    return sel.reshape(b, k, pool, pool, 2, 2).permute(0, 1, 2, 4, 3, 5).reshape(
+        b, k, 2 * pool, 2 * pool)
+
+
+def test_per_tensor_graph_in_the_vector_layout_is_identical(mask_setup, rng):
+    """A per-tensor graph packed into the per-channel operand layout (wsc
+    holding w_scale·asc, asc rows of repeated inverses) gives masks
+    identical, bit for bit, to the six-scalar arithmetic it replaced."""
+    _, det, fmap, _, pw = mask_setup
+    b, k = fmap.shape[0], 6
+    boxes = torch.tensor(_boxes(rng, b, k))
+    classes = torch.tensor(rng.randint(0, JaxQ.NUM_CLASSES, size=(b, k)).astype(np.int32))
+    got = mask_fused.fused_mask_branch(torch.tensor(fmap), boxes, classes,
+                                       mask_fused.weights_to(pw, "cpu"),
+                                       JaxQ.MASK_POOL_SIZE, JaxQ.NUM_CLASSES)
+    want = _six_scalar_plain(torch.tensor(fmap), boxes, classes, det.graph,
+                             JaxQ.MASK_POOL_SIZE, JaxQ.NUM_CLASSES)
+    assert (want - 0.5).abs().mean() > 0.02
+    assert torch.equal(got, want)
+
+
+@pytest.fixture(scope="module")
+def per_channel_det():
+    """The port's own detector on the spread tree, calibrated with
+    QUANT_PER_CHANNEL_ACT and bias-corrected, and its calibration images."""
+    v, _, _ = spread_variables()
+    calib = np.random.RandomState(21).rand(2, *JaxQ.IMAGE_SHAPE).astype(np.float32)
+    cfg = type("PortPC", (PortQ,), {"QUANT_PER_CHANNEL_ACT": True, "QUANT_BIAS_CORRECT": True})()
+    return quant.QuantizedDetector.from_variables(v, cfg, calib, device="cpu"), calib
+
+
+def _fused_vs_chained_masks(det, images, rng, k=7):
+    with torch.inference_mode():
+        fmap = det.trunk(torch.tensor(images), fused_ds=False)[1]
+        boxes = torch.tensor(_boxes(rng, fmap.shape[0], k))
+        classes = rng.randint(0, JaxQ.NUM_CLASSES, size=(fmap.shape[0], k)).astype(np.int32)
+        got = det.fused_mask(boxes, fmap, torch.tensor(classes)).numpy()
+        full = det.mask_branch(boxes, fmap).numpy()
+    return got, np.take_along_axis(full, classes[:, :, None, None, None], axis=-1)[..., 0]
+
+
+def test_mask_plain_vector_scales_match_chained(per_channel_det, rng):
+    """K3's plain version on vector-scale operands (every mask layer's
+    a_scale a vector folded into w_q, bias_corr set) against the chained
+    per-channel mask branch plus a one-hot select, within K3's bounds."""
+    det, calib = per_channel_det
+    mask = det.graph["mask"]
+    assert all(isinstance(l.a_scale, np.ndarray) for l in mask)
+    assert all(l.act_folded and l.bias_corr is not None for l in mask[:5])
+    packed = mask_fused.pack_mask_weights(det.graph, JaxQ.NUM_CLASSES)
+    assert len(np.unique(packed["asc"][1, :16])) > 1      # real vectors, not one value
+    np.testing.assert_array_equal(packed["wsc"][0, :16], mask[0].w_scale[:16])   # s_in = 1
+    _close(*_fused_vs_chained_masks(det, calib, rng))
+
+
+def test_bias_corr_reaches_the_fused_operands(qsetup_bias, rng):
+    """With a non-zero bias_corr on every int8 layer, the plain K1 fed
+    pack_ds_pair's operands equals the chained layers bit for bit and the
+    plain K3 fed pack_mask_weights' operands stays within K3's bounds of the
+    chained mask branch: the packers add bias_corr as run_layer_int8 does.
+    (The JAX package's packers read layer.bias alone, so this holds the port
+    to its own chained path.)"""
+    det, images = qsetup_bias
+    corr = [l.bias_corr for part in det.graph.values() for l in part if l.w_q is not None]
+    assert corr and all(c is not None and np.abs(c).max() > 1e-3 for c in corr)
+    x = torch.tensor(images)
+    launches = ds_block.fused_ds_block.launches
+    with torch.inference_mode():
+        fused, chained = det.trunk(x, fused_ds=True), det.trunk(x, fused_ds=False)
+    assert ds_block.fused_ds_block.launches == launches
+    for a, b in zip(fused, chained):
+        assert torch.equal(a, b)
+    _close(*_fused_vs_chained_masks(det, images, rng))
+    # without the correction in the packed bias the fused trunk is off
+    dw = det.graph["trunk"][3]
+    kept, dw.bias_corr = dw.bias_corr, None
+    with torch.inference_mode():
+        assert not torch.equal(det.trunk(x, fused_ds=True)[0], chained[0])
+    dw.bias_corr = kept
+
+
+@pytest.fixture()
+def qsetup_bias():
+    """A per-tensor detector whose int8 layers all carry a random bias_corr."""
+    v, _, _ = spread_variables()
+    images = np.random.RandomState(5).rand(2, *JaxQ.IMAGE_SHAPE).astype(np.float32)
+    det = quant.QuantizedDetector.from_variables(v, PortQ(), images, device="cpu")
+    r = np.random.default_rng(9)
+    for part in det.graph.values():
+        for l in part:
+            if l.w_q is not None:
+                l.bias_corr = (r.standard_normal(l.bias.shape) * 0.05
+                               * (np.abs(l.bias).mean() + 0.1)).astype(np.float32)
+    return det, images
+
+
+@pytest.mark.parametrize("tool", ["bias_correct", "finetune"])
+def test_packed_operand_caches_are_dropped(qsetup_bias, rng, tool):
+    """bias_correct and finetune rewrite bias_corr (and w_q): the packed K1
+    operands cached on the layers and the detector's packed K3 weights must
+    not outlive them, or the fused kernels would compute the old graph."""
+    det, images = qsetup_bias
+    x = torch.tensor(images)
+    with torch.inference_mode():
+        det.trunk(x, fused_ds=True)                       # fills the K1 caches
+    _fused_vs_chained_masks(det, images, rng)             # and the K3 cache
+    old = det._mask_weights["cpu"][1]["bias"].clone()
+    if tool == "bias_correct":
+        quant.bias_correct(det.graph, det.config, torch.tensor(images))
+    else:
+        det.finetune(images, steps=2)
+    with torch.inference_mode():
+        fused, chained = det.trunk(x, fused_ds=True), det.trunk(x, fused_ds=False)
+    for a, b in zip(fused, chained):
+        assert torch.equal(a, b)
+    _close(*_fused_vs_chained_masks(det, images, rng))
+    assert not torch.equal(det._mask_weights["cpu"][1]["bias"], old)
 
 
 @pytest.mark.parametrize("cf, co", [(16, 16), (16, 256), (200, 64)], ids=["narrow", "tiny", "Cf200"])

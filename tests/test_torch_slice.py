@@ -157,7 +157,7 @@ def test_detect_outputs_matches_jax(slice_setup):
 def test_detect_single_image(slice_setup):
     _, _, _, model, images = slice_setup
     batch = _np(model.detect_batch(images[:1]))
-    res = model.detect(images[0], cs_threshold=0.0)[0]
+    res = model.detect(images[0], cs_threshold=0.0, display=False)[0]
     n = int(batch["valid"][0].sum())
     assert res["bboxes"].shape == (n, 4)
     assert res["full_masks"].shape == (*PortTiny.IMAGE_SHAPE[:2], n)

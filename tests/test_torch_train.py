@@ -568,13 +568,25 @@ def test_training_weights_follow_flax_default_init():
                                   "resnet50_fpn", "keras_h5", "data_parallel"])
 def test_held_out_options_raise_naming_their_roadmap_item(tmp_path, what):
     """What is still held out raises, naming its ROADMAP item; bf16 training,
-    augmentation, data workers and profiler traces are ported and run."""
+    augmentation, data workers, profiler traces and a Keras h5
+    yolo_pretrain_dir are ported and run."""
     cfg = port_config(ShapesTiny())
     ds = shapes(2)
 
     def train(**over):
         MaskYOLO("training", port_config(ShapesTiny(), **over),
                  model_dir=str(tmp_path), device="cpu").train(ds, ds, 1e-3, epochs=1, verbose=False)
+
+    def keras_h5_pretrain():
+        from mask_yolo_tpu_torch import weights
+        from mask_yolo_tpu_torch.utils import keras_h5
+
+        donor = MaskYOLO("yolo", cfg, seed=7, device="cpu")
+        tree = weights.to_jax_variables(donor._host_state)
+        path = str(tmp_path / "pretrained.h5")
+        keras_h5.save_keras_h5(path, tree["params"], tree["batch_stats"])
+        model = MaskYOLO("yolo", cfg, yolo_pretrain_dir=path, seed=0, device="cpu")
+        assert torch.equal(model.net.yolo.conv_23.weight, donor.net.yolo.conv_23.weight)
 
     cases = {
         "bf16": lambda: MaskYOLO("yolo", port_config(ShapesTiny(), COMPUTE_DTYPE="bfloat16"),
@@ -589,11 +601,10 @@ def test_held_out_options_raise_naming_their_roadmap_item(tmp_path, what):
         "resnet50_fpn": lambda: MaskYOLO("training",
                                          port_config(ShapesTiny(), BACKBONE="resnet50_fpn"),
                                          device="cpu"),
-        "keras_h5": lambda: MaskYOLO("yolo", cfg, yolo_pretrain_dir="pretrained.h5",
-                                     device="cpu"),
+        "keras_h5": lambda: keras_h5_pretrain(),
         "data_parallel": lambda: train(DATA_PARALLEL=2),
     }
-    if what in ("bf16", "augmentation", "data_workers", "profile_dir"):
+    if what in ("bf16", "augmentation", "data_workers", "profile_dir", "keras_h5"):
         cases[what]()   # (a one-step epoch ends before the profiler's window opens)
         return
     with pytest.raises(NotImplementedError, match="ROADMAP"):

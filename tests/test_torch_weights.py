@@ -90,3 +90,36 @@ def test_deconv_bridge_follows_flax_orientation(rng, b, h, w, cin, cout):
     np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
     unflipped = torch_deconv(np.ascontiguousarray(kernel.transpose(2, 3, 0, 1)))
     assert np.abs(unflipped - want).max() > 0.5
+
+
+def test_layer_bridge_carries_vector_scales_and_bias_corr(rng):
+    """from_jax_graph on a JAX layer graph calibrated per channel and
+    bias-corrected: a vector a_scale arrives as an f32 numpy vector (a scalar
+    one as a Python float), act_folded and bias_corr come across, a None
+    part stays None."""
+    from mask_yolo_tpu import quant as jquant
+
+    def layer(name, a_scale, folded, corr, quantize=True):
+        l = jquant.Layer(name, "conv", rng.randn(1, 1, 4, 6).astype(np.float32),
+                         rng.randn(6).astype(np.float32), (1, 1), "relu", quantize=quantize)
+        l.a_scale, l.act_folded, l.bias_corr = a_scale, folded, corr
+        if quantize:
+            jquant._quantize_layer_kernel(l, np.asarray(l.kernel))
+        return l
+
+    vec = rng.uniform(0.01, 0.1, 4).astype(np.float32)
+    corr = jnp.asarray(rng.randn(6).astype(np.float32))
+    graph = {"trunk": None,
+             "mask": [layer("a", vec, True, corr), layer("b", 0.25, False, None),
+                      layer("c", vec.astype(np.float64), False, None, quantize=False)]}
+    out = weights.from_jax_graph(graph)
+    assert out["trunk"] is None
+    a, b, c = out["mask"]
+    assert isinstance(a.a_scale, np.ndarray) and a.a_scale.dtype == np.float32
+    np.testing.assert_array_equal(a.a_scale, vec)
+    assert a.act_folded is True and isinstance(a.bias_corr, np.ndarray)
+    np.testing.assert_array_equal(a.bias_corr, np.asarray(corr))
+    np.testing.assert_array_equal(a.w_q, np.asarray(graph["mask"][0].w_q))
+    assert isinstance(b.a_scale, float) and b.a_scale == 0.25
+    assert b.act_folded is False and b.bias_corr is None
+    assert c.a_scale.dtype == np.float32 and c.w_q is None and not c.quantize

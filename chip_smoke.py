@@ -56,7 +56,8 @@ Phases, each fatal on failure (nothing is caught):
                  rtol 1e-6 (f32 out), K3 within the bounds of
                  tests/test_pallas_mask.py; CUDA-event times beside each
                  kernel's bound and torch._int_mm on the same GEMM shapes (a
-                 yardstick of the tensor cores, not the kernels' function)
+                 yardstick of the tensor cores, not the kernels' function;
+                 for K1 the 7x7 (224²) or 13x13 (416²) 1024-wide block's)
   9. int8 slice  MaskYOLO.quantize + detect_batch at 224² with K1 and K3
                  (exactly 10 K1 launches and 1 K3 launch), held against the
                  same detector's chained layers
@@ -118,9 +119,39 @@ Phases, each fatal on failure (nothing is caught):
                  crop through K2 forward and backward; ms per batch and its
                  split into trunk, mask branch and the rest (recorded)
 
-The last three lines are the `nvidia-smi` name/power-limit line, a JSON line
-of kernels (times, launches per path, bounds), and {"ok": true, "device":
-{...}}. Without a CUDA device the script exits 1 and prints no result.
+ X1. export     MaskYOLO.export_model (symbolic batch) of the bf16 model of
+                 phase 4 and the int8 model of phase 9, then
+                 ExportedDetector.load in a child process with nothing but
+                 the artifact: at batch 1, 3 and 16 its outputs against the
+                 live detect_batch (bit-equal, else the parity bounds:
+                 classes and valid equal, boxes within 1e-5 of the image,
+                 masks on >= 99.9 % of pixels), exactly 1 K2 launch a call
+                 (float) or 10 K1 + 1 K3 (int8), the custom ops in the
+                 graph; the artifact moved to the CPU against the port's CPU
+                 live run at batch 2; ms per batch at 128, artifact beside
+                 live (recorded)
+ P1. parallel    (a) parallel.distributed.initialize() from the MYOLO_*
+                 variables forms a world of one over NCCL, and
+                 MaskYOLO.train (2 steps at batch 16) equals the run in one
+                 process; (b) two gloo ranks sharing the card (NCCL refuses
+                 two ranks on one device), dp 2: the step on 8 + 8 images
+                 against one process's step on the 16 (loss rtol 1e-4,
+                 params rtol 2e-3 atol 2.1e-3, BN running statistics 1e-5 of
+                 each leaf's max; the gradients the update is handed and
+                 Adam's first moments by cosine, tree and leaf, GRAD_*, with
+                 one process on the batch reordered beside them as the
+                 noise floor; one K2 forward and backward a rank),
+                 detect_batch(mesh=) in f32 and int8 on 8 + 8 images against
+                 one call on 16 (the parity bounds; 10 K1 and 1 K3 a rank);
+                 (c) mp 2: the same step with every conv of >= 256 output
+                 channels held half per rank before and after; ms per step
+                 at 1 and 2 ranks (recorded). Every rank is a child process
+                 (`--child`) killed after 420 s.
+
+The last lines are a JSON line of X1's and P1's results, the `nvidia-smi`
+name/power-limit line, a JSON line of kernels (times, launches per path,
+bounds), and {"ok": true, "device": {...}}. Without a CUDA device the
+script exits 1 and prints no result.
 
 A bound is the least time the card could take for the kernel's work: the
 larger of the bytes it must move (each input read once, each output written
@@ -144,6 +175,7 @@ import itertools
 import json
 import os
 import shutil
+import socket
 import subprocess
 import sys
 import time
@@ -173,6 +205,8 @@ from mask_yolo_tpu_torch.ops.mask_fused import (fused_mask_branch,
 from mask_yolo_tpu_torch.ops.roi_align import (crop_and_resize, crop_and_resize_backward,
                                                interp_matrix)
 from mask_yolo_tpu_torch.ops.roi_crop import crop_rois, crop_rois_backward
+from mask_yolo_tpu_torch.parallel import distributed as parallel_distributed
+from mask_yolo_tpu_torch.parallel import mesh as parallel_mesh
 from mask_yolo_tpu_torch.pipelines import (detect_from_callables, images_f32,
                                            infer_yolo_from_callables, infer_yolo_outputs,
                                            training_loss)
@@ -918,11 +952,11 @@ def phase_kernels_int8(rng, dev, model224, cfg224, parent=None):
     parent = parent if parent and parent.mask else None
     k1 = check_k1(rng, dev, DS_224, BATCH, "224", parent_k1)
     k1["b128"] = check_k1(rng, dev, DS_224, THROUGHPUT_BATCH, "224", parent_k1)
-    check_k1(rng, dev, DS_416, 4, "416")
-    for b, key in ((BATCH, None), (THROUGHPUT_BATCH, "b128")):
-        gemm = int_mm_ms(dev, b * 7 * 7, 1024, 1024)
-        log(f"[kernel] K1 yardstick: torch._int_mm [{b * 49}, 1024] x [1024, 1024] (the "
-            f"7x7 block's pointwise product) {gemm * 1e3:.1f} us")
+    k1["416"] = check_k1(rng, dev, DS_416, 4, "416")
+    for b, side, key in ((BATCH, 7, None), (THROUGHPUT_BATCH, 7, "b128"), (4, 13, "416")):
+        gemm = int_mm_ms(dev, b * side * side, 1024, 1024)
+        log(f"[kernel] K1 yardstick: torch._int_mm [{b * side * side}, 1024] x [1024, 1024] "
+            f"(the {side}x{side} block's pointwise product, B={b}) {gemm * 1e3:.1f} us")
         (k1[key] if key else k1)["gemm_core_ms"] = gemm
     k = cfg224.DETECTION_MAX_INSTANCES
     k3 = check_k3(rng, dev, model224._qdet, cfg224, BATCH, k, "224", True, parent)
@@ -1885,6 +1919,447 @@ def shapes_quality(dev, smi, workdir):
         print(json.dumps({"shapes_quality": result}), flush=True)
 
 
+# ---- phases X1 and P1: the export artifact and the parallel paths -----------
+
+EXPORT_BATCHES = (1, 3, 16)        # X1: the artifact's batches against the live path
+EXPORT_CPU_BATCH = 2               # X1: the CUDA artifact moved to the CPU
+EXPORT_LAUNCHES = {"float": {"crop_rois": 1, "crop_rois_backward": 0, "fused_ds_block": 0,
+                             "fused_mask_branch": 0},
+                   "int8": {"crop_rois": 0, "crop_rois_backward": 0,
+                            "fused_ds_block": K1_LAUNCHES, "fused_mask_branch": K3_LAUNCHES}}
+# the port's parity bounds (tests/test_torch_export.py): classes and valid
+# equal, boxes within this of the image size, masks equal on this share
+PARITY_BOX, PARITY_MASK = 1e-5, 0.999
+P1_BATCH, P1_LR = 16, 1e-3         # P1: the global batch and the step's learning rate
+# the step on the mesh against one process (tests/test_multichip.py's
+# tolerances; BatchNorm's running statistics relative to each leaf's max)
+STEP_LOSS_RTOL, STEP_RTOL, STEP_ATOL, BN_REL = 1e-4, 2e-3, 2.1e-3, 1e-5
+# One Adam step moves every weight by about lr whatever its gradient, so the
+# parameters alone cannot tell a wrong gradient: the gradients the update is
+# handed, and Adam's first moment after it ((1 - b1) times the clipped
+# gradient), are held to one process's. The whole tree by its cosine and by
+# the norm of its difference against its own norm (which a wrong scale, as
+# of a clip norm, moves and the cosine does not), and each leaf by the norm
+# of its difference against the leaf's norm, or a thousandth of the tree's
+# where the leaf is smaller: the biases ahead of a train-mode BatchNorm have
+# a gradient of zero but for rounding. One process's step on the same batch
+# in another order, the noise floor beside them, reads cosine 0.99998, 0.54 %
+# and 0.92 % (NVIDIA H100 80GB HBM3, 700 W)
+GRAD_COS, GRAD_REL, GRAD_LEAF, GRAD_FLOOR = 0.9999, 0.02, 0.05, 1e-3
+CHILD_TIMEOUT_S = 420              # a child (or rank) that runs longer is killed
+
+
+def detect_parity(got, want, cfg):
+    """(bit-equal?, {measured}) of two detect dicts (numpy); raises beyond
+    the parity bounds."""
+    exact = all(np.array_equal(got[k], want[k]) for k in want)
+    h, w = cfg.IMAGE_SHAPE[:2]
+    scale = np.array([w, h, w, h], np.float32)
+    box = float(np.abs(got["boxes"] / scale - want["boxes"] / scale).max())
+    agree = float((got["masks"] == want["masks"]).mean())
+    same = all(np.array_equal(got[k], want[k]) for k in ("classes", "valid"))
+    if not (same and box <= PARITY_BOX and agree >= PARITY_MASK):
+        raise AssertionError(f"outside the parity bounds: classes/valid equal {same}, boxes "
+                             f"{box:.3g} (limit {PARITY_BOX}), masks agree {agree:.6f} "
+                             f"(limit {PARITY_MASK})")
+    return exact, {"max_box_err": box, "mask_agree": agree}
+
+
+def host(out):
+    return {k: v.cpu().numpy() for k, v in out.items()}
+
+
+def run_children(kind, n, workdir, **env):
+    """Run `python3 chip_smoke.py --child <kind> <workdir>` as n ranks (the
+    MYOLO_* triplet set); each must exit 0 within CHILD_TIMEOUT_S, or it is
+    killed and the phase fails. Returns each rank's JSON result."""
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    procs = []
+    for rank in range(n):
+        log_file = open(workdir / f"{kind}{rank}.log", "w")
+        child_env = dict(os.environ, MYOLO_COORDINATOR=f"localhost:{port}",
+                         MYOLO_NUM_PROCESSES=str(n), MYOLO_PROCESS_ID=str(rank), **env)
+        procs.append((subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--child", kind, str(workdir)],
+            env=child_env, stdout=log_file, stderr=subprocess.STDOUT), log_file))
+    failed = []
+    try:
+        for rank, (proc, _) in enumerate(procs):
+            try:
+                if proc.wait(timeout=CHILD_TIMEOUT_S) != 0:
+                    failed.append(rank)
+            except subprocess.TimeoutExpired:
+                failed.append(rank)
+    finally:
+        for proc, log_file in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            log_file.close()
+    for rank in range(n):
+        for line in (workdir / f"{kind}{rank}.log").read_text().splitlines():
+            if line.startswith("["):
+                log(f"  rank {rank}: {line}")
+    if failed:
+        tails = "\n".join((workdir / f"{kind}{r}.log").read_text()[-4000:] for r in failed)
+        raise AssertionError(f"{kind}: ranks {failed} failed or timed out:\n{tails}")
+    return [json.loads((workdir / f"{kind}{r}.json").read_text()) for r in range(n)]
+
+
+def phase_export(dev, smi, model, model8, workdir):
+    """X1: export_model (symbolic batch) of the bf16 and the int8 detector,
+    then ExportedDetector.load in a child process: at batch 1, 3 and 16 its
+    outputs against the live detect_batch, exactly 1 K2 launch (float) or
+    10 K1 + 1 K3 (int8) a call; the artifact moved to the CPU against the
+    port's CPU live run at batch 2; ms per batch at 128, artifact beside
+    live. Returns ({tag: result}, {path: {kernel: launches of each call}})."""
+    rng = np.random.default_rng(SEED + 8)
+    images = (rng.random((THROUGHPUT_BATCH, *ShapesConfig.IMAGE_SHAPE)) * 255).astype(np.uint8)
+    np.save(workdir / "images.npy", images)
+    x = torch.as_tensor(images, device=dev)
+    live, result = {}, {}
+    for tag, m in (("float", model), ("int8", model8)):
+        t0 = time.perf_counter()
+        header = m.export_model(workdir / f"{tag}.pt2", platforms=["cuda", "cpu"])
+        seconds = time.perf_counter() - t0
+        live[tag] = {b: host(m.detect_batch(images[:b])) for b in EXPORT_BATCHES}
+        cpu = MaskYOLO("inference", m.config, seed=SEED, device="cpu")
+        if tag == "int8":   # the card's int8 graph (a CPU calibration gives other scales)
+            cpu._qdet = quant.QuantizedDetector(m._qdet.graph, m.config, device="cpu")
+        live[tag]["cpu"] = host(cpu.detect_batch(images[:EXPORT_CPU_BATCH]))
+        result[tag] = {"export_s": seconds, "live_ms": cuda_ms(lambda: m.detect_batch(x),
+                                                               iters=10, warmup=3),
+                       "bytes": (workdir / f"{tag}.pt2").stat().st_size,
+                       "batch_size": header["batch_size"]}
+    child = run_children("export", 1, workdir)[0]
+    outputs = np.load(workdir / "export_out.npz")
+    counts = {}
+    for tag, cfg in (("float", model.config), ("int8", model8.config)):
+        r = result[tag] | child[tag]
+        counts[f"export_{tag}"] = {name: [c[name] for c in r["per_call"]] for name in KERNELS}
+        if any(c != EXPORT_LAUNCHES[tag] for c in r["per_call"]):
+            raise AssertionError(f"{tag} artifact launches {r['per_call']}, expected "
+                                 f"{EXPORT_LAUNCHES[tag]} a call")
+        if r["graph_ops"] != {k: v for k, v in EXPORT_LAUNCHES[tag].items() if v}:
+            raise AssertionError(f"{tag} artifact graph holds {r['graph_ops']}")
+        verdicts = []
+        for b in EXPORT_BATCHES:
+            got = {k[len(f"{tag}.{b}."):]: outputs[k] for k in outputs.files
+                   if k.startswith(f"{tag}.{b}.")}
+            exact, measured = detect_parity(got, live[tag][b], cfg)
+            verdicts.append(f"B={b} {'bit-equal' if exact else measured}")
+        got = {k[len(f"{tag}.cpu."):]: outputs[k] for k in outputs.files
+               if k.startswith(f"{tag}.cpu.")}
+        exact, measured = detect_parity(got, live[tag]["cpu"], cfg)
+        verdicts.append(f"moved to the CPU, B={EXPORT_CPU_BATCH}, against the CPU live run "
+                        f"{'bit-equal' if exact else measured}")
+        log(f"[export] {tag}: export_model {r['export_s']:.1f} s, {r['bytes'] / 2**20:.1f} MiB; "
+            f"child load {r['load_s']:.1f} s, graph custom ops {r['graph_ops']}; launches a "
+            f"call {r['per_call'][0]}; " + "; ".join(verdicts) + f"; B={THROUGHPUT_BATCH}: "
+            f"artifact {r['ms']:.3f} ms/batch, live {r['live_ms']:.3f} ms/batch on {smi} "
+            f"(recorded, not claimed)")
+        result[tag] = r
+    return result, counts
+
+
+def child_export(dev, workdir):
+    """X1's child: loads the artifacts with nothing but the export module and
+    runs them."""
+    from mask_yolo_tpu_torch.export import ExportedDetector, custom_op_counts
+
+    images = np.load(workdir / "images.npy")
+    x = torch.as_tensor(images, device=dev)
+    result, outputs = {}, {}
+    for tag in ("float", "int8"):
+        t0 = time.perf_counter()
+        det = ExportedDetector.load(workdir / f"{tag}.pt2")
+        load_s = time.perf_counter() - t0
+        per_call = []
+        for b in EXPORT_BATCHES:
+            for k in KERNELS.values():
+                k.launches = 0
+            out = det.detect_batch(images[:b])
+            torch.cuda.synchronize()
+            per_call.append({name: k.launches for name, k in KERNELS.items()})
+            outputs.update({f"{tag}.{b}.{k}": v for k, v in host(out).items()})
+        ms = cuda_ms(lambda: det.detect_batch(x), iters=10, warmup=3)
+        cpu = ExportedDetector.load(workdir / f"{tag}.pt2", device="cpu")
+        outputs.update({f"{tag}.cpu.{k}": v for k, v in host(
+            cpu.detect_batch(images[:EXPORT_CPU_BATCH])).items()})
+        result[tag] = {"load_s": load_s, "graph_ops": custom_op_counts(det.program),
+                       "per_call": per_call, "ms": ms}
+    np.savez(workdir / "export_out.npz", **outputs)
+    return result
+
+
+def p1_batch(cfg, dev):
+    """The global batch of P1: the targets of the first 16 images of a seeded
+    Shapes set, on seeded noise images (as tests/test_torch_parallel.py):
+    the flat colours of Shapes images leave BatchNorm near-zero variances,
+    which make the TRAIN_BN gradient ill-conditioned, so that two f32
+    summation orders of one step differ far more than on noise."""
+    one = type("P1Batch", (type(cfg),), {"BATCH_SIZE": P1_BATCH})()
+    gen = BatchGenerator(preload_dataset(shapes_dataset(P1_BATCH, SEED + 2, one), one), one,
+                         shuffle=False)
+    batch = dict(gen[0])
+    batch["image"] = np.random.default_rng(SEED + 3).random(
+        batch["image"].shape, dtype=np.float32)
+    return to_device(batch, dev)
+
+
+def compare_step(loss, params, stats, want_loss, want_params, want_stats):
+    """The step on the mesh against one process's: {measured}; raises beyond
+    the tolerances."""
+    loss_err = abs(loss - want_loss) / abs(want_loss)
+    param_err = max(float(((params[k] - v).abs() - STEP_RTOL * v.abs()).max())
+                    for k, v in want_params.items())
+    param_diff = max(float((params[k] - v).abs().max()) for k, v in want_params.items())
+    bn_err = max(float((stats[k] - v).abs().max() / v.abs().max().clamp(min=1e-12))
+                 for k, v in want_stats.items())
+    if loss_err > STEP_LOSS_RTOL or param_err > STEP_ATOL or bn_err > BN_REL:
+        raise AssertionError(f"the step differs from one process's: loss rel {loss_err:.3g}, "
+                             f"params beyond rtol by {param_err:.3g}, BN stats rel {bn_err:.3g}")
+    return {"loss_rel_err": loss_err, "param_excess": param_err, "max_param_diff": param_diff,
+            "bn_rel_err": bn_err}
+
+
+def record_first_update(tx):
+    """tx, keeping the gradients its next update is handed in tx.seen; after
+    that update it is itself again (the timed steps copy nothing)."""
+    apply = tx.apply
+
+    def record(params, grads, opt_state):
+        tx.seen = {k: g.detach().clone() for k, g in grads.items() if g is not None}
+        del tx.apply
+        apply(params, grads, opt_state)
+
+    tx.apply = record
+    return tx
+
+
+def compare_trees(what, got, want):
+    """{cos, rel, worst_leaf, worst_key} of two {key: tensor} trees; raises
+    beyond GRAD_COS / GRAD_REL / GRAD_LEAF or if their keys differ."""
+    if set(got) != set(want):
+        raise AssertionError(f"{what}: keys differ: {sorted(set(got) ^ set(want))[:5]}")
+    keys = sorted(want)
+    a = torch.cat([got[k].double().flatten() for k in keys])
+    b = torch.cat([want[k].double().flatten() for k in keys])
+    cos = float(a @ b / (a.norm() * b.norm()))
+    rel = float((a - b).norm() / b.norm())
+    floor = GRAD_FLOOR * float(b.norm())
+    worst, key = max((float((got[k].double() - want[k].double()).norm())
+                      / max(float(want[k].double().norm()), floor), k) for k in keys)
+    if not (cos >= GRAD_COS and rel <= GRAD_REL and worst <= GRAD_LEAF):
+        raise AssertionError(f"{what} differ from one process's: cosine {cos:.7f} (limit "
+                             f"{GRAD_COS}), tree {rel:.3g} (limit {GRAD_REL}), worst leaf "
+                             f"{key} {worst:.3g} (limit {GRAD_LEAF})")
+    return {"cos": cos, "rel": rel, "worst_leaf": worst, "worst_key": key}
+
+
+def wide_shards(net):
+    """{key: shape} of the convs with >= 256 output channels (whole or held)."""
+    return {k: list(p.shape) for k, p in net.named_parameters()
+            if p.dim() == 4 and p.shape[1 if "deconv" in k else 0] >= 128}
+
+
+def step_ms(step, state, batch, n=5):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        step(state, batch)
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / n
+
+
+def child_nccl(dev, workdir):
+    """P1(a): MaskYOLO.train (2 steps at batch 16 + 1 validation step) in one
+    process, then the same in a world of one over NCCL. Both runs take
+    deterministic algorithms (cuDNN's, and scatter-add's for the gathers'
+    gradients; CUBLAS_WORKSPACE_CONFIG is set by the parent), so that two
+    steps of Adam do not amplify atomics' summation order."""
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    cfg = TrainConfig()
+    train_ds, val_ds = shapes_dataset(2 * P1_BATCH, SEED, cfg), shapes_dataset(P1_BATCH,
+                                                                                 SEED + 1, cfg)
+    runs = []
+    for joined in (False, True):
+        if joined:
+            rank, world = parallel_distributed.initialize(device=dev)
+            backend = "nccl" if dev.type == "cuda" else "gloo"
+            if (rank, world, torch.distributed.get_backend()) != (0, 1, backend):
+                raise AssertionError(f"expected a world of one over {backend}, got rank {rank} of "
+                                     f"{world} over {torch.distributed.get_backend()}")
+        model = MaskYOLO("training", cfg, model_dir=str(workdir / f"nccl{int(joined)}"),
+                         seed=SEED, device=dev)
+        for k in KERNELS.values():
+            k.launches = 0
+        model.train(train_ds, val_ds, P1_LR, epochs=1, verbose=False)
+        torch.cuda.synchronize()
+        history = json.loads((workdir / f"nccl{int(joined)}" / "history.jsonl").read_text())
+        runs.append((history["loss"], {k: v.detach().clone() for k, v in
+                                       model.net.named_parameters()},
+                     {k: v.clone() for k, v in model.net.named_buffers()
+                      if k.endswith(("running_mean", "running_var"))},
+                     {name: k.launches for name, k in KERNELS.items()}))
+    (loss0, p0, s0, _), (loss1, p1, s1, launches) = runs
+    want = (cfg.STEPS_PER_EPOCH + cfg.VALIDATION_STEPS, cfg.STEPS_PER_EPOCH)
+    if (launches["crop_rois"], launches["crop_rois_backward"]) != want:
+        raise AssertionError(f"K2 launches {launches}, expected forward/backward {want}")
+    measured = compare_step(loss1, p1, s1, loss0, p0, s0)
+    measured["bit_equal"] = all(torch.equal(p1[k], p0[k]) for k in p0) and all(
+        torch.equal(s1[k], s0[k]) for k in s0)
+    print(f"[nccl] world of one over NCCL: MaskYOLO.train 2 steps at batch {P1_BATCH}, loss "
+          f"{loss1:.6f} vs {loss0:.6f} in one process; {measured}; launches {launches}",
+          flush=True)
+    parallel_distributed.shutdown()
+    return {"launches": launches, **measured}
+
+
+def child_mesh(kind, dev, workdir):
+    """P1(b) and (c): two gloo ranks sharing the card. The step on the mesh
+    (dp 2 × mp 1, or dp 1 × mp 2) against one process's step on the same 16
+    images; (b) also detect_batch(mesh=) and the int8 detect on 8 + 8
+    images against one call on 16."""
+    rank, world = parallel_distributed.initialize(device=dev, backend="gloo")
+    dp, mp = (2, 1) if kind == "dp" else (1, 2)
+    cfg = type("P1Mesh", (TrainConfig,), {"DATA_PARALLEL": dp, "MODEL_PARALLEL": mp,
+                                       "BATCH_SIZE": P1_BATCH // dp})()
+    batch = p1_batch(cfg, dev)
+    mesh = parallel_mesh.build_mesh(cfg)
+    rows = parallel_mesh.batch_slice(P1_BATCH, mesh)
+    model = MaskYOLO("training", cfg, seed=SEED, device=dev)
+    whole = wide_shards(model.net)
+    shardings = parallel_mesh.place_network(model.net, mesh)
+    before = wide_shards(model.net)
+    tx = record_first_update(
+        train_state.make_optimizer(P1_LR, cfg, dict(model.net.named_parameters())))
+    tx.shard(shardings, mesh.model_group)
+    step = trainer.make_train_step(cfg, tx, "training", mesh=mesh)
+    state = train_state.create_train_state(model.net, tx)
+    local = {k: v[rows] for k, v in batch.items()}
+    for k in KERNELS.values():
+        k.launches = 0
+    state, metrics = step(state, local)
+    torch.cuda.synchronize()
+    train_launches = {name: k.launches for name, k in KERNELS.items()}
+    if (train_launches["crop_rois"], train_launches["crop_rois_backward"]) != (1, 1):
+        raise AssertionError(f"rank {rank}: K2 launches {train_launches} in one step")
+    after = wide_shards(model.net)
+    for key, dim in shardings.items():
+        if key in whole and dim is not None:
+            want = list(whole[key])
+            want[dim] //= mp
+            if before[key] != want or after[key] != want:
+                raise AssertionError(f"{key}: held {before[key]} / {after[key]}, not {want}")
+    held = sum(1 for key, dim in shardings.items() if key in whole and dim is not None)
+    if mp > 1 and held != sum(1 for k, s in whole.items() if s[1 if "deconv" in k else 0] >= 256):
+        raise AssertionError("a conv with >= 256 output channels is not sharded")
+    # copies: the timed steps below move the live tensors on
+    params = {k: v.clone() for k, v in parallel_mesh.gather_tree(
+        {k: v.detach() for k, v in state.params.items()}, shardings, mesh).items()}
+    stats = {k: v.clone() for k, v in parallel_mesh.gather_tree(
+        state.batch_stats, shardings, mesh).items()}
+    grads = parallel_mesh.gather_tree(tx.seen, shardings, mesh)
+    mu = {k: v.clone() for k, v in parallel_mesh.gather_tree(
+        state.opt_state["mu"], shardings, mesh).items()}
+    loss = float(metrics["loss"])
+    ms = step_ms(step, state, local)
+    result = {"rank": rank, "launches": {"train": train_launches}, "ms": ms,
+              "sharded_convs": held}
+    if rank == 0:
+        one = MaskYOLO("training", TrainConfig(), seed=SEED, device=dev)
+        tx1 = record_first_update(train_state.make_optimizer(
+            P1_LR, TrainConfig(), dict(one.net.named_parameters())))
+        step1 = trainer.make_train_step(TrainConfig(), tx1, "training")
+        state1 = train_state.create_train_state(one.net, tx1)
+        state1, metrics1 = step1(state1, batch)
+        result.update(compare_step(loss, params, stats, float(metrics1["loss"]),
+                                   {k: v.detach() for k, v in state1.params.items()},
+                                   state1.batch_stats))
+        result["grads"] = compare_trees("the gradients", grads, tx1.seen)
+        result["adam_mu"] = compare_trees("Adam's first moments", mu, state1.opt_state["mu"])
+        # the noise floor: one process's step on the batch in another order
+        again = MaskYOLO("training", TrainConfig(), seed=SEED, device=dev)
+        tx2 = record_first_update(train_state.make_optimizer(
+            P1_LR, TrainConfig(), dict(again.net.named_parameters())))
+        order = torch.randperm(P1_BATCH, generator=torch.Generator().manual_seed(SEED))
+        trainer.make_train_step(TrainConfig(), tx2, "training")(
+            train_state.create_train_state(again.net, tx2),
+            {k: v[order.to(v.device)] for k, v in batch.items()})
+        result["grads_reordered"] = compare_trees("the reordered batch's gradients",
+                                                  tx2.seen, tx1.seen)
+        del again, tx2
+        norm = float(torch.stack([g.norm() for g in tx1.seen.values()]).norm())
+        result["grad_norm"] = {"one_process": norm, "clip": tx1.clip}
+        result["one_process_ms"] = step_ms(step1, state1, batch)
+        print(f"[{kind}] step on the {dp}x{mp} mesh (gloo, 2 ranks on one card), batch "
+              f"{P1_BATCH}: loss {loss:.6f} vs {float(metrics1['loss']):.6f} in one process; "
+              f"{ {k: result[k] for k in ('loss_rel_err', 'param_excess', 'bn_rel_err')} }; "
+              f"gradients {result['grads']}, Adam mu {result['adam_mu']} (global norm "
+              f"{norm:.4g}, clip {tx1.clip}; one process on the batch reordered: "
+              f"{result['grads_reordered']}); {held} convs held O/{mp} before and after",
+              flush=True)
+    if kind == "dp":
+        rng = np.random.default_rng(SEED + 9)
+        images = (rng.random((P1_BATCH, *ShapesConfig.IMAGE_SHAPE)) * 255).astype(np.uint8)
+        f32 = MaskYOLO("inference", ShapesConfig(), seed=SEED, device=dev)
+        m8 = MaskYOLO("inference", Int8Config(), seed=SEED, device=dev)
+        m8.quantize(np.random.RandomState(1).rand(8, *ShapesConfig.IMAGE_SHAPE)
+                    .astype(np.float32))
+        for tag, m in (("float", f32), ("int8", m8)):
+            for k in KERNELS.values():
+                k.launches = 0
+            out = m.detect_batch(images[rows], mesh=mesh)
+            torch.cuda.synchronize()
+            result["launches"][f"detect_{tag}"] = {n: k.launches for n, k in KERNELS.items()}
+            got = host(parallel_mesh.gather_batch(out, mesh))
+            if rank == 0:
+                exact, measured = detect_parity(got, host(m.detect_batch(images)), m.config)
+                result[f"detect_{tag}"] = "bit-equal" if exact else measured
+        n8 = result["launches"]["detect_int8"]
+        if (n8["fused_ds_block"], n8["fused_mask_branch"], n8["crop_rois"]) != (
+                K1_LAUNCHES, K3_LAUNCHES, 0):
+            raise AssertionError(f"rank {rank}: int8 detect on the mesh launched {n8}")
+        if result["launches"]["detect_float"]["crop_rois"] != 1:
+            raise AssertionError(f"rank {rank}: float detect on the mesh did not launch K2 once")
+        if rank == 0:
+            print(f"[dp] detect_batch(mesh=) on 8 + 8 images vs one call on 16: f32 "
+                  f"{result['detect_float']}, int8 {result['detect_int8']}; int8 launches a "
+                  f"rank {n8}", flush=True)
+    torch.distributed.barrier()
+    parallel_distributed.shutdown()
+    return result
+
+
+def phase_parallel(dev, smi, workdir):
+    """P1: (a) a world of one over NCCL, (b) DP and (c) TP on two gloo ranks
+    sharing the card, each rank a child process. Returns ({kind: rank 0's
+    result}, {path: {kernel: launches of each run}})."""
+    nccl = run_children("nccl", 1, workdir, CUBLAS_WORKSPACE_CONFIG=":4096:8")[0]
+    counts = {"nccl_train": {name: [n] for name, n in nccl["launches"].items()}}
+    ranks = {}
+    for kind in ("dp", "tp"):
+        ranks[kind] = run_children(kind, 2, workdir, LOCAL_RANK="0")
+        counts[f"{kind}_train"] = {name: [r["launches"]["train"][name] for r in ranks[kind]]
+                                   for name in KERNELS}
+        log(f"[parallel] {kind}: ms per step at batch {P1_BATCH}: 2 ranks sharing the card "
+            f"(gloo) {[round(r['ms'], 3) for r in ranks[kind]]}, one process "
+            f"{ranks[kind][0]['one_process_ms']:.3f}, on {smi} (recorded, not claimed)")
+    counts["dp_detect"] = {name: [r["launches"][f"detect_{tag}"][name] for r in ranks["dp"]
+                                  for tag in ("float", "int8")] for name in KERNELS}
+    return {"nccl": nccl, **{kind: r[0] for kind, r in ranks.items()}}, counts
+
+
+CHILDREN = {"export": child_export, "nccl": child_nccl,
+            "dp": lambda dev, workdir: child_mesh("dp", dev, workdir),
+            "tp": lambda dev, workdir: child_mesh("tp", dev, workdir)}
+
+
 def kernel_line(name, source, replaces, launches, err, ms, plain_ms, bnd, **extra):
     """One entry of the kernels JSON line; launches: {path: count}."""
     return {"name": name, "route": "cuda", "source": f"mask_yolo_tpu_torch/csrc/{source}",
@@ -1909,11 +2384,21 @@ def main() -> int:
     ap.add_argument("--shapes-quality", action="store_true",
                     help="instead of the phases: train Shapes for 40 epochs on 400 images "
                          "in f32 and in bf16 and print held-out box and mask AP")
+    ap.add_argument("--child", nargs=2, metavar=("KIND", "DIR"), default=None,
+                    help="internal: one process of phase X1 or P1 (export, nccl, dp, tp)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this check runs only on a GPU", file=sys.stderr)
         return 1
     dev = torch.device("cuda", 0)
+    if args.child:
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_tf32 = False
+        kind, workdir = args.child[0], Path(args.child[1])
+        result = CHILDREN[kind](dev, workdir)
+        rank = os.environ.get("MYOLO_PROCESS_ID", "0")
+        (workdir / f"{kind}{rank}.json").write_text(json.dumps(result))
+        return 0
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
                          check=True, timeout=60).stdout.strip().splitlines()[0]
@@ -1978,6 +2463,13 @@ def main() -> int:
                 expect=("fused_ds_block", "fused_mask_branch"), tag="serve int8")
     phase_int8_throughput(model8, cfg8, dev, rng, smi, bf16_ms, k1["b128"]["ms"],
                           k3["b128"]["ms"])
+    export_dir = workdir.parent / "chip_smoke_export"
+    shutil.rmtree(export_dir, ignore_errors=True)
+    export_dir.mkdir(parents=True)
+    try:
+        exported, export_counts = phase_export(dev, smi, model, model8, export_dir)
+    finally:
+        shutil.rmtree(export_dir, ignore_errors=True)
     infer_counts = {}
     del model8
     torch.cuda.empty_cache()
@@ -1995,6 +2487,11 @@ def main() -> int:
         shutil.rmtree(workdir)
         workdir.mkdir(parents=True)
         phase_data_and_evaluate(dev, smi, trained, data_counts, workdir)
+        del trained
+        torch.cuda.empty_cache()
+        shutil.rmtree(workdir)
+        workdir.mkdir(parents=True)
+        parallel, parallel_counts = phase_parallel(dev, smi, workdir)
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
 
@@ -2002,7 +2499,8 @@ def main() -> int:
         return {path: sum(counts.get(name, [])) for path, counts in (
             ("float_detect", float_counts), ("int8_detect", int8_counts),
             ("infer_yolo", infer_counts), ("coco416", coco_counts), ("train", train_counts),
-            ("train_bf16", train16_counts), ("data_evaluate", data_counts))}
+            ("train_bf16", train16_counts), ("data_evaluate", data_counts),
+            *export_counts.items(), *parallel_counts.items())}
 
     b128 = lambda r: {key: r.get(key) for key in (                          # noqa: E731
         "ms", "plain_ms", "bound_ms", "parent_ms", "gemm_core_ms")}
@@ -2019,11 +2517,15 @@ def main() -> int:
                            by_path, head["max_abs_err"], head["ms"], head["plain_ms"],
                            (head["bound_ms"], head["bound_by"]), **keys(head), shapes=rest)
 
+    print(json.dumps({"export_parallel": {
+        "export": {tag: {k: v for k, v in r.items() if k != "per_call"}
+                   for tag, r in exported.items()},
+        "parallel": parallel, "device": smi}}))
     print(smi)
     print(json.dumps({"kernels": [
         crop_line("crop_rois", kernel.pop("detect"), kernel),
         crop_line("crop_rois_backward", kernel_bwd[0], {"coco416": kernel_bwd[1]},
-                  paths=("train", "data_evaluate")),
+                  paths=("train", "data_evaluate", "nccl_train", "dp_train", "tp_train")),
         # the bf16 gradient's kernel: the same wrapper, counted on the bf16 run
         crop_line("crop_rois_backward_bf16", kernel_bwd16[0], {"coco416": kernel_bwd16[1]},
                   counted="crop_rois_backward", paths=("train_bf16",)),
@@ -2031,7 +2533,7 @@ def main() -> int:
                     launches("fused_ds_block"), k1["max_abs_err"], k1["ms"], k1["plain_ms"],
                     (k1["bound_ms"], k1["bound_by"]), at="one trunk's 10 calls, B=16",
                     parent_ms=k1["parent_ms"], gemm_core_ms=k1["gemm_core_ms"],
-                    b128=b128(k1["b128"])),
+                    b128=b128(k1["b128"]), coco416=b128(k1["416"])),
         kernel_line("fused_mask_branch", "fused_mask_branch.cu",
                     "mask_yolo_tpu/ops/pallas_mask.py:233", launches("fused_mask_branch"),
                     k3["max_abs_err"], k3["ms"], k3["plain_ms"], (k3["bound_ms"], k3["bound_by"]),

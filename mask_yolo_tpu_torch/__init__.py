@@ -14,12 +14,18 @@ data workers and profiler traces), evaluation (`evaluate_dataset`,
 `make_ap_eval_callback`), the int8 quality tools (per-channel activation
 scales, percentile calibration, bias correction, the quantization-aware
 finetune), the Shapes, DenseShapes, COCO-JSON and VIA datasets, the anchor
-tools, drawing (`utils/visualize.py`) and Keras h5 weights
-(`utils/keras_h5.py`). Three hand-written CUDA kernels run on GPU
-tensors: the ROI crop (`ops/roi_crop.py`, `csrc/crop_rois.cu`), the
-fused int8 depthwise-separable block (`ops/ds_block.py`,
-`csrc/fused_ds_block.cu`) and the fused int8 mask branch
-(`ops/mask_fused.py`, `csrc/fused_mask_branch.cu`).
+tools, drawing (`utils/visualize.py`), Keras h5 weights
+(`utils/keras_h5.py`), the export artifact (`MaskYOLO.export_model`,
+`export.ExportedDetector`, through `torch.export`) and the parallel paths
+(`parallel/`: a (data, model) mesh over `torch.distributed` ranks, data-
+and tensor-parallel training, `detect_batch(mesh=)`,
+`evaluate_dataset(mesh=)`). Three hand-written CUDA kernels run on GPU
+tensors, each a `torch.library` custom op: the ROI crop
+(`ops/roi_crop.py`, `csrc/crop_rois.cu`), the fused int8
+depthwise-separable block (`ops/ds_block.py`, `csrc/fused_ds_block.cu`)
+and the fused int8 mask branch (`ops/mask_fused.py`,
+`csrc/fused_mask_branch.cu`). Not ported yet: the ResNet-50 + FPN backbone
+(ROADMAP Queue 1 #9).
 """
 
 from .config import Config, CocoStyleConfig

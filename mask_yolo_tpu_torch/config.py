@@ -7,7 +7,7 @@ packages from the same values.
 
 Hyperparameters are class attributes, users subclass `Config` and override
 what they need, and `display()` dumps the resolved values. Some knobs
-(TRAIN_SCAN_STEPS, DATA_PARALLEL, QUANT_FAST_CROP, QUANT_FOLD_MASK_SELECT,
+(TRAIN_SCAN_STEPS, QUANT_FAST_CROP, QUANT_FOLD_MASK_SELECT,
 QUANT_PALLAS_CROP) belong to parts of the JAX package the port does not
 have; the comments on the QUANT_* knobs describe the JAX package's
 measurements, not the port's.

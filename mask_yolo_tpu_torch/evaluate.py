@@ -16,6 +16,7 @@ import numpy as np
 import torch
 
 from .data.loader import load_image_gt
+from .parallel.mesh import batch_slice, gather_batch
 from .utils import metrics
 
 
@@ -31,12 +32,15 @@ def evaluate_dataset(model, dataset, config, image_ids=None, batch_size=8,
     per_image (per-image AP dicts, mean reported as box_ap50_per_image for
     continuity with round-1 numbers).
 
-    mesh: sharding an eval batch over devices is not ported yet and raises.
+    mesh: a parallel.mesh.Mesh (or True: the model's own) splits each eval
+    batch over the mesh's data ranks; every rank of the job calls this with
+    the same arguments, detects its share through
+    `model.detect_batch(share, mesh=mesh)`, the shares are gathered, and
+    every rank returns the AP a single process gives. batch_size must then
+    divide by the data-axis size.
     """
-    if mesh is not None:
-        raise NotImplementedError(
-            "evaluate_dataset(mesh=) is not ported yet (ROADMAP Queue 1 #8, item 11: "
-            "parallel, a data-parallel detector)")
+    if mesh is True:
+        mesh = model.mesh
     if image_ids is None:
         image_ids = list(dataset.image_ids)
 
@@ -62,8 +66,13 @@ def evaluate_dataset(model, dataset, config, image_ids=None, batch_size=8,
             batch = np.concatenate(
                 [batch, np.zeros((pad, h, w, 3), np.float32)])
         # model may be any duck-typed object with a detect_batch(images)
+        if mesh is None:
+            raw = model.detect_batch(batch)
+        else:
+            raw = gather_batch({k: torch.as_tensor(v) for k, v in model.detect_batch(
+                batch[batch_slice(len(batch), mesh)], mesh=mesh).items()}, mesh)
         out = {k: v.cpu().numpy() if torch.is_tensor(v) else np.asarray(v)
-               for k, v in model.detect_batch(batch).items()}
+               for k, v in raw.items()}
 
         for bi, (gt_ids, gt_boxes, gt_masks) in enumerate(gts):
             keep = out["valid"][bi] & (out["scores"][bi] >= score_threshold)

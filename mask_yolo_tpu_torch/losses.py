@@ -12,6 +12,14 @@
 
 Metrics are returned as detached tensors on the loss's device, so a training
 loop reads them without waiting for the device until it logs.
+
+Under a data group (parallel/mesh.py: each rank holds its share of the
+global batch) the normalizers, `yolo_loss`'s nb_coord, nb_conf and nb_class
+and `mask_loss`'s num_pos, are summed over the group before they divide, as
+they are sums over the global batch in the JAX package's GSPMD step. They
+carry no gradient. Each rank's loss is then its share of the global-batch
+loss, and the shares add up to it. `yolo_loss`'s recall is the global
+batch's too.
 """
 
 from __future__ import annotations
@@ -20,6 +28,7 @@ import torch
 import torch.nn.functional as F
 
 from .ops.boxes import _cell_grid
+from .parallel.collectives import all_reduce_
 
 
 def _pairwise_iou_xywh(xy1, wh1, xy2, wh2):
@@ -33,13 +42,15 @@ def _pairwise_iou_xywh(xy1, wh1, xy2, wh2):
     return inter / (a1 + a2 - inter)
 
 
-def yolo_loss(y_true, y_pred, true_boxes, config, seen=1e9):
+def yolo_loss(y_true, y_pred, true_boxes, config, seen=1e9, group=None):
     """YOLOv2 composite loss.
 
     y_true, y_pred: [B, gh, gw, nb, 5+C] (targets in grid-unit xywh, conf,
     one-hot; the raw network output). true_boxes: [B, 1, 1, 1, T, 4] GT boxes
     in grid units (cx, cy, w, h). seen: batches seen (a host number); below
-    WARM_UP_BATCHES the warm-up targets apply. Returns (loss, metrics).
+    WARM_UP_BATCHES the warm-up targets apply. group: the data group whose
+    global batch the normalizers count (None: this batch). Returns (loss,
+    metrics).
     """
     dt, dev = y_pred.dtype, y_pred.device
     anchors = torch.as_tensor(config.anchors_wh, dtype=dt, device=dev)[None, None, None]
@@ -70,9 +81,10 @@ def yolo_loss(y_true, y_pred, true_boxes, config, seen=1e9):
         true_wh = true_wh + anchors * no_boxes_mask
         coord_mask = torch.ones_like(coord_mask)
 
-    nb_coord = (coord_mask > 0.0).to(dt).sum()
-    nb_conf = (conf_mask > 0.0).to(dt).sum()
-    nb_class = (class_mask > 0.0).to(dt).sum()
+    nb_pred_box = torch.sum((true_conf > 0.5).to(dt) * (pred_conf > 0.3).to(dt)).detach()
+    counts = torch.stack([(coord_mask > 0.0).to(dt).sum(), (conf_mask > 0.0).to(dt).sum(),
+                          (class_mask > 0.0).to(dt).sum(), nb_pred_box, obj.sum().detach()])
+    nb_coord, nb_conf, nb_class, nb_pred_box, nb_obj = all_reduce_(counts, group)
 
     loss_xy = torch.sum(torch.square(true_xy - pred_xy) * coord_mask) / (nb_coord + 1e-6) / 2.0
     loss_wh = torch.sum(torch.square(true_wh - pred_wh) * coord_mask) / (nb_coord + 1e-6) / 2.0
@@ -81,20 +93,20 @@ def yolo_loss(y_true, y_pred, true_boxes, config, seen=1e9):
     loss_class = torch.sum(ce * class_mask) / (nb_class + 1e-6)
     loss = loss_xy + loss_wh + loss_conf + loss_class
 
-    nb_pred_box = torch.sum((true_conf > 0.5).to(dt) * (pred_conf > 0.3).to(dt))
     metrics = {"loss_xy": loss_xy, "loss_wh": loss_wh, "loss_conf": loss_conf,
                "loss_class": loss_class, "yolo_sum_loss": loss,
-               "recall": nb_pred_box / (obj.sum() + 1e-6)}
+               "recall": nb_pred_box / (nb_obj + 1e-6)}
     return loss, {k: v.detach() for k, v in metrics.items()}
 
 
-def mask_loss(target_masks, target_class_ids, pred_masks):
+def mask_loss(target_masks, target_class_ids, pred_masks, group=None):
     """Mask-head binary cross-entropy.
 
     target_masks: [B, R, mh, mw] 0/1, zero-padded; target_class_ids: [B, R]
     int, 0 for negatives; pred_masks: [B, R, mh, mw, C] sigmoid
     probabilities. The mean over the positive ROIs' pixels of their class
-    channel; 0 if no ROI is positive.
+    channel; 0 if no ROI is positive. group: the data group whose global
+    batch num_pos counts (None: this batch).
     """
     mh, mw = pred_masks.shape[2:4]
     dt = pred_masks.dtype
@@ -103,7 +115,7 @@ def mask_loss(target_masks, target_class_ids, pred_masks):
     y_pred = torch.clamp(torch.gather(pred_masks, -1, ids)[..., 0], 1e-7, 1.0 - 1e-7)
     y_true = target_masks.to(dt)
     bce = -(y_true * torch.log(y_pred) + (1.0 - y_true) * torch.log(1.0 - y_pred))
-    num_pos = positive.sum()
+    num_pos = all_reduce_(positive.sum().detach(), group)
     total = torch.sum(bce * positive[..., None, None])
     return torch.where(num_pos > 0, total / torch.clamp(num_pos * mh * mw, min=1.0),
                        torch.zeros((), dtype=dt, device=pred_masks.device))

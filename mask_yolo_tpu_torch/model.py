@@ -23,6 +23,15 @@ The model keeps an f32 host copy of its weights (`_host_state`, a torch
 state_dict of numpy arrays), which `quantize` folds as the JAX package does;
 `train`, `load_weights` and `load_jax_variables` refresh it and drop the
 int8 detector, which snapshots the old weights.
+
+Parallel (parallel/): in a job of several processes (one device each,
+joined by `parallel.distributed.initialize()`), `train` runs on the mesh
+that `mesh` builds from DATA_PARALLEL and MODEL_PARALLEL: each rank trains
+on its share of the data with BATCH_SIZE per process, the step equals the
+single-process step on the global batch, and the chief writes the whole
+checkpoints. `detect_batch(mesh=)` and `evaluate_dataset(mesh=)` detect
+each rank's share. `export_model` writes the detect pipeline as a
+`torch.export` artifact (export.py).
 """
 
 from __future__ import annotations
@@ -35,11 +44,15 @@ import shutil
 import numpy as np
 import torch
 
+from . import export as export_lib
 from . import pipelines, weights
 from .data.pipeline import (BatchGenerator, GeneratorEpochSource, data_generator,
                             preload_dataset)
 from .data.prefetch import to_device
 from .models.network import MaskYoloNet
+from .parallel import mesh as mesh_lib
+from .parallel.distributed import local_image_ids
+from .parallel.inference import ShardedDetector
 from .quant import QuantizedDetector
 from .train import state as state_lib
 from .train import trainer as trainer_lib
@@ -89,6 +102,8 @@ class MaskYOLO:
         self.yolo_trainable = yolo_trainable
         self.epoch = 0
         self._qdet = None
+        self._mesh = None
+        self._sharded_det = None
         self._tx = None
         self._train_step = None
         self._layer_regex = ".*"
@@ -131,19 +146,31 @@ class MaskYOLO:
             else:
                 self.load_weights(yolo_pretrain_dir, by_name=True)
 
+    @property
+    def mesh(self):
+        """The (data, model) mesh over the job's ranks (parallel/mesh.py),
+        built at first use; the global batch is BATCH_SIZE per process."""
+        if self._mesh is None:
+            world = torch.distributed.get_world_size() if torch.distributed.is_initialized() else 1
+            self._mesh = mesh_lib.build_mesh(self.config,
+                                             batch_size=int(self.config.BATCH_SIZE) * world)
+        return self._mesh
+
     # -- training ------------------------------------------------------------
 
     def compile(self, learning_rate, momentum=None, layer_regex: str = ".*",
-                total_steps: int = 0):
+                total_steps: int = 0, mesh=None):
         """Create the optimizer (the JAX package's optax chain, train/state.py)
         and the train step. `momentum` is accepted for signature parity;
         Adam ignores it. yolo_trainable=False freezes the backbone and the
-        YOLO head, the whole image→YOLO-output path."""
+        YOLO head, the whole image→YOLO-output path. mesh: the step of a
+        network placed on it (train)."""
         frozen = () if self.yolo_trainable else ("backbone", "yolo")
         self._tx = state_lib.make_optimizer(
             learning_rate, self.config, dict(self.net.named_parameters()),
             layer_regex=layer_regex, frozen_prefixes=frozen, total_steps=total_steps)
-        self._train_step = trainer_lib.make_train_step(self.config, self._tx, self._loss_mode)
+        self._train_step = trainer_lib.make_train_step(self.config, self._tx, self._loss_mode,
+                                                       mesh=mesh)
 
     @property
     def _loss_mode(self):
@@ -180,47 +207,71 @@ class MaskYOLO:
         statistics, optimizer moments, step and epoch, then continues to
         `epochs`. stop_after_epoch: return once that epoch's checkpoint is
         written, while the schedules still see the full `epochs` horizon.
+
+        In a job of several processes every rank calls train with the same
+        arguments. The mesh (`mesh`) splits the data by data index
+        (`local_image_ids`; with `augmentation`, each data rank draws its
+        own stream, seeded by its index), places the network (BatchNorm
+        statistics over the data group; under MODEL_PARALLEL > 1 the wide
+        convs sharded over the model group, their optimizer state too), and
+        the step is the single-process step on the global batch. The metrics
+        and the validation loss are the global batch's; the chief writes the
+        whole checkpoints, config.json and history.jsonl, and the network is
+        whole again when train returns.
         """
-        if max(int(self.config.DATA_PARALLEL or 0), int(self.config.MODEL_PARALLEL or 1)) > 1:
-            raise NotImplementedError(
-                "multi-device training is not ported yet (ROADMAP Queue 1 item 11, "
-                "parallel: DDP over NCCL)")
         layer_regex = {"all": ".*"}.get(layers, layers)
         mode = self._loss_mode
+        distributed = torch.distributed.is_initialized()
+        mesh = self.mesh   # checks DATA_PARALLEL and MODEL_PARALLEL against the ranks
+        if not distributed:
+            mesh = None    # one process: no collective to run
+        chief = not distributed or torch.distributed.get_rank() == 0
+        share = ((lambda ds: local_image_ids(ds.image_ids, mesh.data_index, mesh.dp))
+                 if mesh is not None else (lambda ds: None))
         if augmentation is not None:
             # floor, not ceil: data_generator emits full batches only (the
             # remainder rolls into the next pull), so ceil would drift the
             # epoch boundary off the dataset pass and its shuffle point
-            steps = max(1, len(train_dataset.image_ids) // self.config.BATCH_SIZE)
+            n_train = len(train_dataset.image_ids) // (mesh.dp if mesh is not None else 1)
+            steps = max(1, n_train // self.config.BATCH_SIZE)
             train_gen = GeneratorEpochSource(
                 data_generator(train_dataset, self.config, shuffle=True,
-                               augmentation=augmentation, mode=mode),
+                               augmentation=augmentation, mode=mode,
+                               seed=mesh.data_index if mesh is not None else 0),
                 steps, self.config)
         else:
-            train_gen = BatchGenerator(preload_dataset(train_dataset, self.config),
-                                       self.config, mode=mode, shuffle=True, seed=self.seed)
-        val_gen = BatchGenerator(preload_dataset(val_dataset, self.config), self.config,
-                                 mode=mode, shuffle=False)
+            train_gen = BatchGenerator(
+                preload_dataset(train_dataset, self.config, image_ids=share(train_dataset)),
+                self.config, mode=mode, shuffle=True, seed=self.seed)
+        val_gen = BatchGenerator(preload_dataset(val_dataset, self.config,
+                                                 image_ids=share(val_dataset)),
+                                 self.config, mode=mode, shuffle=False)
 
+        self._invalidate_infer_fns()   # the weights are about to change
+        shardings = mesh_lib.place_network(self.net, mesh) if mesh is not None else None
         self.set_trainable(layer_regex)
         steps_cap = int(getattr(self.config, "STEPS_PER_EPOCH", 0) or 0)
         steps_per_epoch = min(steps_cap, len(train_gen)) if steps_cap else len(train_gen)
         self.compile(learning_rate, self.config.LEARNING_MOMENTUM, layer_regex=layer_regex,
-                     total_steps=max(1, epochs * steps_per_epoch))
-        self._invalidate_infer_fns()   # the weights are about to change
+                     total_steps=max(1, epochs * steps_per_epoch), mesh=mesh)
+        if mesh is not None:
+            self._tx.shard(shardings, mesh.model_group)
 
         state = state_lib.create_train_state(self.net, self._tx)
         if resume_from is not None:
-            state, self.epoch = state_lib.resume_train_state(resume_from, state, self._tx)
+            state, self.epoch = state_lib.resume_train_state(resume_from, state, self._tx,
+                                                             mesh=mesh, shardings=shardings)
             if verbose:
                 print(f"Resumed from {resume_from} at epoch {self.epoch}")
-        eval_step = trainer_lib.make_eval_step(self.config, mode)
+        eval_step = trainer_lib.make_eval_step(self.config, mode, mesh=mesh)
 
         os.makedirs(self.model_dir, exist_ok=True)
-        with open(os.path.join(self.model_dir, "config.json"), "w") as f:
-            json.dump({k: v for k, v in self.config.to_dict().items()
-                       if isinstance(v, (int, float, str, bool, list, tuple, dict, type(None)))},
-                      f, indent=2, default=str)
+        if chief:
+            with open(os.path.join(self.model_dir, "config.json"), "w") as f:
+                json.dump({k: v for k, v in self.config.to_dict().items()
+                           if isinstance(v, (int, float, str, bool, list, tuple, dict,
+                                             type(None)))},
+                          f, indent=2, default=str)
         val_steps = int(getattr(self.config, "VALIDATION_STEPS", 0) or 0)
         n_val = min(len(val_gen), val_steps) if val_steps > 0 else len(val_gen)
         start_epoch = self.epoch
@@ -240,15 +291,21 @@ class MaskYOLO:
                 if verbose:
                     print(f"  train: {metrics}  val_loss: {val_loss:.4f}")
 
-                ckpt_path = os.path.join(
-                    self.model_dir, "saved_model_" + datetime.datetime.now().strftime(
-                        "%b%d-%H-%M-%S") + f"_e{epoch + 1:04d}.pt")
-                state_lib.save_checkpoint(ckpt_path, state, epoch=epoch + 1)
-                self._rotate_checkpoints()
+                stamp = datetime.datetime.now().strftime("%b%d-%H-%M-%S")
+                if distributed:   # one name on every rank: the chief's
+                    box = [stamp]
+                    torch.distributed.broadcast_object_list(box, src=0)
+                    stamp = box[0]
+                ckpt_path = os.path.join(self.model_dir,
+                                         f"saved_model_{stamp}_e{epoch + 1:04d}.pt")
+                state_lib.save_checkpoint(ckpt_path, state, epoch=epoch + 1, mesh=mesh,
+                                          shardings=shardings)
                 self.epoch = epoch + 1
-                with open(os.path.join(self.model_dir, "history.jsonl"), "a") as f:
-                    f.write(json.dumps({"epoch": epoch + 1, "val_loss": val_loss,
-                                        **metrics}) + "\n")
+                if chief:
+                    self._rotate_checkpoints()
+                    with open(os.path.join(self.model_dir, "history.jsonl"), "a") as f:
+                        f.write(json.dumps({"epoch": epoch + 1, "val_loss": val_loss,
+                                            **metrics}) + "\n")
                 for cb in custom_callbacks or ():
                     cb(epoch, metrics, val_loss, state)
                 if stop_after_epoch is not None and epoch + 1 >= stop_after_epoch:
@@ -259,6 +316,8 @@ class MaskYOLO:
         finally:
             if augmentation is not None:
                 train_gen.gen.close()   # stops the loader workers
+            if mesh is not None:
+                mesh_lib.unplace_network(self.net, shardings, mesh)
             self.net.eval()
             self._sync_host_state()
         return state
@@ -347,8 +406,10 @@ class MaskYOLO:
     def _invalidate_infer_fns(self):
         """Drop the int8 detector: it snapshots the weights, so any weight
         change (load_weights, train) must drop it or detect and infer_yolo
-        would keep serving the stale graph."""
+        would keep serving the stale graph; and the sharded detector, whose
+        tensor-parallel copy does too."""
         self._qdet = None
+        self._sharded_det = None
 
     # -- inference -------------------------------------------------------------
 
@@ -388,6 +449,32 @@ class MaskYOLO:
         self._qdet = qdet
         return qdet
 
+    def export_model(self, path, batch_size=None, input_dtype="uint8", platforms=None):
+        """Export the detect pipeline, weights inside, to a `torch.export`
+        artifact at `path`, which `export.ExportedDetector.load(path)` serves
+        with no model code. batch_size=None exports a symbolic batch
+        dimension (one artifact, any B). After quantize() the active int8
+        pipeline is exported, as detect/detect_batch then serve it. The
+        program is traced on the model's device; `platforms` lists the device
+        types it may be loaded onto. Returns the artifact's header dict (see
+        export.py for the format)."""
+        if self._qdet is not None:
+            fused = bool(getattr(self.config, "QUANT_FUSED_MASK", False))
+            detect = self._qdet.detect_fn(fused_mask=fused)
+            h, w, c = self.config.IMAGE_SHAPE
+            with torch.no_grad():   # pack the int8 weights outside the trace
+                detect(torch.zeros((1, h, w, c), dtype=torch.uint8, device=self.device))
+            program, header = export_lib.export_detect_fn(
+                detect, self.config, batch_size=batch_size, input_dtype=input_dtype,
+                platforms=platforms, compute_path="int8", device=self.device)
+        else:
+            self.net.eval()
+            program, header = export_lib.export_detect(
+                self.net, self.config, batch_size=batch_size, input_dtype=input_dtype,
+                platforms=platforms)
+        export_lib.save_exported(program, header, path)
+        return header
+
     def _images(self, images):
         if not torch.is_tensor(images):
             images = torch.from_numpy(np.ascontiguousarray(images))
@@ -397,13 +484,25 @@ class MaskYOLO:
         return images.to(self.device, non_blocking=True)
 
     @torch.inference_mode()
-    def detect_batch(self, images, weights_dir=None):
+    def detect_batch(self, images, weights_dir=None, mesh=None):
         """[B, H, W, 3] uint8, or float in [0, 1] (numpy or tensor) → the
         fixed-shape dict of tensors on the model's device (see
         pipelines.detect_outputs); the int8 path after quantize().
-        weights_dir: a checkpoint to load first."""
+        weights_dir: a checkpoint to load first.
+
+        mesh: a parallel.mesh.Mesh, or True for the model's own (`mesh`):
+        `images` is this rank's local batch, detected by a
+        parallel.inference.ShardedDetector (or, after quantize(), by the
+        int8 detector), and the result is this rank's."""
         if weights_dir is not None:
             self.load_weights(weights_dir)
+        if mesh is not None and mesh is not False:
+            mesh = self.mesh if mesh is True else mesh
+            if self._qdet is not None:
+                return self._qdet.detect_outputs(self._images(images), mesh=mesh)
+            if self._sharded_det is None or self._sharded_det.mesh is not mesh:
+                self._sharded_det = ShardedDetector(self.net, self.config, mesh=mesh)
+            return self._sharded_det(self._images(images))
         if self._qdet is not None:
             return self._qdet.detect_outputs(self._images(images))
         self.net.eval()

@@ -17,6 +17,20 @@ BatchNorm follows flax's `nn.BatchNorm` in train mode too (`BatchNorm`).
 Padding follows flax "SAME": at stride 1 a 3×3 pads 1 on each side, at
 stride 2 on an even input it pads 0 before and 1 after, which torch's
 symmetric `padding=` cannot express — `same_pad` applies it explicitly.
+
+On a mesh (parallel/mesh.place_network) two things change, and off one
+neither does:
+  * a BatchNorm in train mode sums its batch mean and E[x²] over the data
+    group (`data_group`) before it uses them, through an all-reduce that
+    carries gradients, so the statistics and their gradients are the global
+    batch's, as the JAX package's GSPMD step computes them; the running
+    statistics move by those global values;
+  * a wide conv (`tp`, a `TensorParallel`) holds its rank's share of the
+    output channels: its input enters the model group (the identity, whose
+    gradient is summed over the group), a depthwise conv then takes its
+    share of the input channels, and the block gathers the output over the
+    group after its BatchNorm and activation (`gathered`), which run on the
+    rank's channels with the rank's parameters.
 """
 
 from __future__ import annotations
@@ -24,6 +38,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from ..parallel import collectives
 
 BN_EPS = 1e-3        # flax nn.BatchNorm(epsilon=1e-3)
 BN_MOMENTUM = 0.01   # flax momentum 0.99 is torch momentum 0.01
@@ -51,10 +67,39 @@ def same_pad(x, kernel: int, stride: int):
     return F.pad(x, pads)
 
 
+class TensorParallel:
+    """A conv's share of its output channels over a model group: rank
+    `index` of `size` holds channels [index·n, (index+1)·n) of `channels`,
+    n = channels / size."""
+
+    def __init__(self, group, index: int, size: int, channels: int):
+        self.group, self.index, self.size, self.channels = group, index, size, channels
+        self.lo = index * (channels // size)
+
+    def enter(self, x, depthwise: bool):
+        """The conv's NCHW input: in the model group, and its own input
+        channels for a depthwise conv."""
+        x = collectives.enter_group(x, self.group)
+        if depthwise:
+            x = x[:, self.lo:self.lo + self.channels // self.size]
+        return x
+
+    def gather(self, x):
+        return collectives.gather_channels(x, self.group, self.lo)
+
+
+def gathered(conv, x):
+    """x, the block output of `conv`'s channels, gathered over its model
+    group where the conv is tensor-parallel (x itself otherwise)."""
+    return x if conv.tp is None else conv.tp.gather(x)
+
+
 class SameConv2d(nn.Conv2d):
     """nn.Conv2d with flax "SAME" padding. Stride 1 pads symmetrically inside
     the convolution; stride 2 pads explicitly (0 before, 1 after on even
-    inputs)."""
+    inputs). `tp`: its TensorParallel share on a mesh (None off one)."""
+
+    tp = None
 
     def __init__(self, cin, cout, kernel, stride=1, groups=1, bias=True,
                  dtype=torch.float32, param_dtype=None):
@@ -65,6 +110,8 @@ class SameConv2d(nn.Conv2d):
                          groups=groups, bias=bias, dtype=param_dtype or dtype)
 
     def forward(self, x):
+        if self.tp is not None:
+            x = self.tp.enter(x, depthwise=self.groups > 1)
         x = x.to(self.compute_dtype)
         if self.same_stride != 1:
             x = same_pad(x, self.kernel_size[0], self.same_stride)
@@ -80,13 +127,17 @@ def cast_params(conv, dtype):
 
 class ConvTranspose2d(nn.ConvTranspose2d):
     """nn.ConvTranspose2d computing in `dtype` on parameters held in
-    `param_dtype` (default: `dtype`)."""
+    `param_dtype` (default: `dtype`). `tp` as SameConv2d's."""
+
+    tp = None
 
     def __init__(self, cin, cout, kernel, stride, dtype=torch.float32, param_dtype=None):
         self.compute_dtype = dtype
         super().__init__(cin, cout, kernel, stride=stride, dtype=param_dtype or dtype)
 
     def forward(self, x):
+        if self.tp is not None:
+            x = self.tp.enter(x, depthwise=False)
         weight, bias = cast_params(self, self.compute_dtype)
         return F.conv_transpose2d(x.to(self.compute_dtype), weight, bias, self.stride)
 
@@ -101,8 +152,12 @@ class BatchNorm(nn.BatchNorm2d):
     (x − mean)·(rsqrt(var + eps)·scale) + bias, and moves the running
     statistics by ra = 0.99·ra + 0.01·stat with that same biased variance.
     (nn.BatchNorm2d would update `running_var` with the unbiased n/(n−1)
-    variance, 14 % too large at 8 samples.)
+    variance, 14 % too large at 8 samples.) With a `data_group` (on a mesh),
+    the mean and E[x²] are those of the group's whole batch (each rank's
+    batch of one size).
     """
+
+    data_group = None
 
     def __init__(self, num_features):
         super().__init__(num_features, eps=BN_EPS, momentum=BN_MOMENTUM)
@@ -113,7 +168,12 @@ class BatchNorm(nn.BatchNorm2d):
         x = x.float()
         dims = (0, 2, 3)
         mean = x.mean(dims)
-        var = torch.clamp((x * x).mean(dims) - mean * mean, min=0.0)
+        square = (x * x).mean(dims)
+        if self.data_group is not None:
+            n = torch.distributed.get_world_size(self.data_group)
+            mean, square = collectives.all_reduce_sum(torch.stack([mean, square]),
+                                                      self.data_group) / n
+        var = torch.clamp(square - mean * mean, min=0.0)
         with torch.no_grad():
             keep = 1.0 - self.momentum
             self.running_mean.mul_(keep).add_(mean * self.momentum)
@@ -139,7 +199,7 @@ class ConvBN(nn.Module):
         self.bn = batch_norm(features)
 
     def forward(self, x):
-        return relu6(self.bn(self.conv(x).float()))   # BN in f32, as in flax
+        return gathered(self.conv, relu6(self.bn(self.conv(x).float())))   # BN in f32, as in flax
 
 
 class DepthwiseSeparable(nn.Module):
@@ -157,5 +217,5 @@ class DepthwiseSeparable(nn.Module):
         self.conv_pw_bn = batch_norm(features)
 
     def forward(self, x):
-        x = relu6(self.conv_dw_bn(self.conv_dw(x).float()))
-        return relu6(self.conv_pw_bn(self.conv_pw(x).float()))
+        x = gathered(self.conv_dw, relu6(self.conv_dw_bn(self.conv_dw(x).float())))
+        return gathered(self.conv_pw, relu6(self.conv_pw_bn(self.conv_pw(x).float())))

@@ -14,7 +14,7 @@ import torch
 from torch import nn
 
 from ..ops.roi_crop import crop_rois
-from .layers import ConvTranspose2d, SameConv2d, batch_norm
+from .layers import ConvTranspose2d, SameConv2d, batch_norm, gathered
 
 CONV_FEATURES = 256
 
@@ -53,8 +53,8 @@ class MaskHead(nn.Module):
         for i in range(1, 5):
             conv = getattr(self, f"mask_conv{i}")
             bn = getattr(self, f"mask_bn{i}")
-            x = torch.relu(bn(conv(x).float()))   # BN in f32, as in flax
-        x = torch.relu(self.mask_deconv(x))
-        x = torch.sigmoid(self.mask_out(x).float())
+            x = gathered(conv, torch.relu(bn(conv(x).float())))   # BN in f32, as in flax
+        x = gathered(self.mask_deconv, torch.relu(self.mask_deconv(x)))
+        x = torch.sigmoid(gathered(self.mask_out, self.mask_out(x)).float())
         side = 2 * p
         return x.permute(0, 2, 3, 1).reshape(b, r, side, side, self.num_classes)

@@ -16,7 +16,7 @@ import math
 import torch
 from torch import nn
 
-from .layers import SameConv2d
+from .layers import SameConv2d, gathered
 from .mask_head import MaskHead
 from .mobilenet import MobileNetBackbone
 from .yolo_head import YoloHead
@@ -97,7 +97,7 @@ class MaskYoloNet(nn.Module):
         float32, fmap [B, h, w, C] in the compute dtype)."""
         x = image.permute(0, 3, 1, 2).contiguous(memory_format=torch.channels_last)
         c4 = self.backbone(x)
-        fmap = self.feature_map(c4)
+        fmap = gathered(self.feature_map, self.feature_map(c4))
         return self.yolo(c4), fmap.permute(0, 2, 3, 1)
 
     def mask_branch(self, rois, fmap):

@@ -10,7 +10,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from .layers import DepthwiseSeparable, SameConv2d
+from .layers import DepthwiseSeparable, SameConv2d, gathered
 
 # (features, stride) of block7..block14
 _BLOCKS = ((512, 2),) + ((512, 1),) * 5 + ((1024, 2), (1024, 1))
@@ -31,7 +31,7 @@ class YoloHead(nn.Module):
         """x: [B, 512, h, w] → grid [B, gh, gw, nb, 5+C] float32."""
         for i in range(7, 7 + len(_BLOCKS)):
             x = getattr(self, f"block{i}")(x)
-        x = self.conv_23(x).permute(0, 2, 3, 1)   # NHWC view
+        x = gathered(self.conv_23, self.conv_23(x)).permute(0, 2, 3, 1)   # NHWC view
         b, gh, gw, _ = x.shape
         # the raw grid stays in float32 for the decode math
         return x.reshape(b, gh, gw, self.n_box, 5 + self.num_classes).float()

@@ -17,7 +17,14 @@ for bit: requantize as round_half_even(y · (f32(1) / f32(scale))). The TPU
 kernel takes its inverse in f64 (`pallas_ds.py:122`); the port uses the
 chained path's f32 form.
 
-`fused_ds_block.launches` counts kernel launches (CPU calls do not count).
+The block is the `torch.library` custom op `mask_yolo_tpu_torch::fused_ds_block`
+(registered at import; the kernel builds at its first launch): a CUDA kernel
+(the launch below), a CPU kernel (the plain version) and a fake whose dtype
+follows `s_out`, and no device-generic implementation. `torch.export`
+records the op (export.py), so an exported program launches the kernel.
+
+`fused_ds_block.launches` counts kernel launches, in the op's CUDA kernel
+(CPU calls do not count).
 """
 
 from __future__ import annotations
@@ -107,14 +114,20 @@ def fused_ds_block(x_q, kdw, dwsb, wpw, pwsb, a_pw: float, s_out: float = 0.0):
             raise ValueError(f"{name} must be contiguous (the packed layout)")
     if not a_pw > 0.0 or s_out < 0.0:
         raise ValueError(f"need a_pw > 0 and s_out >= 0, got {a_pw}, {s_out}")
-    if x_q.device.type == "cpu":
-        return fused_ds_block_reference(x_q, kdw, dwsb, wpw, pwsb, a_pw, s_out)
-    if x_q.device.type != "cuda":
+    if x_q.device.type == "cuda":
+        if c % 32 or o % 16:
+            raise ValueError(f"the kernel needs C % 32 == 0 and O % 16 == 0, got C={c}, O={o}")
+        if not x_q.is_contiguous():
+            raise ValueError("fused_ds_block needs a contiguous x_q")
+    elif x_q.device.type != "cpu":
         raise ValueError(f"fused_ds_block runs on cpu or cuda tensors, got {x_q.device}")
-    if c % 32 or o % 16:
-        raise ValueError(f"the kernel needs C % 32 == 0 and O % 16 == 0, got C={c}, O={o}")
-    if not x_q.is_contiguous():
-        raise ValueError("fused_ds_block needs a contiguous x_q")
+    return torch.ops.mask_yolo_tpu_torch.fused_ds_block(x_q, kdw, dwsb, wpw, pwsb,
+                                                        float(a_pw), float(s_out))
+
+
+def _block_cuda(x_q, kdw, dwsb, wpw, pwsb, a_pw, s_out):
+    b, h, w, c = x_q.shape
+    o = wpw.shape[0]
     out = torch.empty((b, h, w, o), dtype=torch.int8 if s_out else torch.float32,
                       device=x_q.device)
     if out.numel() == 0:
@@ -130,4 +143,19 @@ def fused_ds_block(x_q, kdw, dwsb, wpw, pwsb, a_pw: float, s_out: float = 0.0):
     return out
 
 
+def _block_cpu(x_q, kdw, dwsb, wpw, pwsb, a_pw, s_out):
+    return fused_ds_block_reference(x_q, kdw, dwsb, wpw, pwsb, a_pw, s_out)
+
+
+def _block_fake(x_q, kdw, dwsb, wpw, pwsb, a_pw, s_out):
+    return x_q.new_empty((*x_q.shape[:3], wpw.shape[0]),
+                         dtype=torch.int8 if s_out > 0 else torch.float32)
+
+
 fused_ds_block.launches = 0
+_LIB = torch.library.Library("mask_yolo_tpu_torch", "FRAGMENT")
+_LIB.define("fused_ds_block(Tensor x_q, Tensor kdw, Tensor dwsb, Tensor wpw, Tensor pwsb, "
+            "float a_pw, float s_out) -> Tensor")
+_LIB.impl("fused_ds_block", _block_cpu, "CPU")
+_LIB.impl("fused_ds_block", _block_cuda, "CUDA")
+torch.library.register_fake("mask_yolo_tpu_torch::fused_ds_block", _block_fake, lib=_LIB)

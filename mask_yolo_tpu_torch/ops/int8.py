@@ -55,19 +55,22 @@ def _round8(n: int) -> int:
 def int_mm(a, b):
     """int8 [M, K] @ int8 [K, N] → int32 [M, N] through `torch._int_mm`.
 
-    On CUDA `_int_mm` needs M > 16 and K, N multiples of 8; the operands are
-    zero-padded to that on every device (zero rows and columns add exact
-    zeros), which covers the stem (K = 27) and `conv_23` (N = 3·(5+C)).
-    cuBLASLt's int8 GEMM also wants `b` column-major there."""
+    On CUDA `_int_mm` needs M > 16 and K, N multiples of 8. K and N are
+    zero-padded to that on every device, M to 17 rows on CUDA only (zero rows
+    and columns add exact zeros), which covers the stem (K = 27) and
+    `conv_23` (N = 3·(5+C)). M carries the batch, so a traced program
+    (export.py) decides its padding by a comparison that the batch's range
+    settles, not by a guard on the batch. cuBLASLt's int8 GEMM also wants
+    `b` column-major there."""
     m, k = a.shape
     n = b.shape[1]
-    kp, n8, mp = _round8(k), _round8(n), max(m, 17)
+    kp, n8 = _round8(k), _round8(n)
     if kp != k:
         a = F.pad(a, (0, kp - k))
         b = F.pad(b, (0, 0, 0, kp - k))
     if n8 != n:
         b = F.pad(b, (0, n8 - n))
-    if mp != m:
-        a = F.pad(a, (0, 0, 0, mp - m))
+    if a.is_cuda and m <= 16:
+        a = F.pad(a, (0, 0, 0, 17 - m))
     b = b.t().contiguous().t() if b.is_cuda else b.contiguous()
     return torch._int_mm(a.contiguous(), b)[:m, :n]

@@ -43,8 +43,16 @@ weight is 0: the result
 equals the true width's. At the full widths (Cf = 256, co = 256) nothing is
 padded or copied.
 
-`fused_mask_branch.launches` counts kernel calls (one per call; CPU calls
-do not count).
+The branch is the `torch.library` custom op
+`mask_yolo_tpu_torch::fused_mask_branch` (registered at import; the kernel
+builds at its first launch), whose arguments are the packed weights as flat
+tensors (`WEIGHT_NAMES`): a CUDA kernel (the launch below), a CPU kernel
+(the plain version) and a fake, and no device-generic implementation.
+`torch.export` records the op (export.py), so an exported program launches
+the kernel.
+
+`fused_mask_branch.launches` counts kernel calls (one per call, in the op's
+CUDA kernel; CPU calls do not count).
 """
 
 from __future__ import annotations
@@ -64,6 +72,7 @@ _LAYER_NAMES = ["mask_conv1", "mask_conv2", "mask_conv3", "mask_conv4", "mask_de
 SWIZZLE_BYTES = 128   # the kernel's k-step and the swizzle's period
 CIN_TILE = 128        # input channels of a k-step (BK in csrc/fused_mask_branch.cu)
 CO_TILE = 256         # output channels of a GEMM block (BN there)
+WEIGHT_NAMES = ("w1", "w2", "w3", "w4", "wd", "wo", "wsc", "bias", "asc")
 
 
 def _round_up(n: int, to: int) -> int:
@@ -301,12 +310,23 @@ def fused_mask_branch(fmap, boxes, classes, weights, pool: int = 14, num_classes
                              f"{t.dtype} {tuple(t.shape)} on {t.device}")
         if not t.is_contiguous():
             raise ValueError(f"weights[{name!r}] must be contiguous (the packed layout)")
-    if fmap.device.type == "cpu":
-        return fused_mask_branch_reference(fmap, boxes, classes, weights, pool, num_classes)
-    if fmap.device.type != "cuda":
+    if fmap.device.type not in ("cpu", "cuda"):
         raise ValueError(f"fused_mask_branch runs on cpu or cuda tensors, got {fmap.device}")
+    return torch.ops.mask_yolo_tpu_torch.fused_mask_branch(
+        fmap, boxes, classes, *(weights[name] for name in WEIGHT_NAMES), pool, num_classes)
+
+
+def _branch_cpu(fmap, boxes, classes, *args):
+    *packed, pool, num_classes = args
+    return fused_mask_branch_reference(fmap, boxes, classes, dict(zip(WEIGHT_NAMES, packed)),
+                                       pool, num_classes)
+
+
+def _branch_cuda(fmap, boxes, classes, w1, w2, w3, w4, wd, wo, wsc, bias, asc, pool,
+                 num_classes):
     b, h, w, _ = fmap.shape
     k = boxes.shape[1]
+    co, cf = CO_TILE, _round_up(fmap.shape[-1], CIN_TILE)
     out = torch.empty((b, k, 2 * pool, 2 * pool), dtype=torch.float32, device=fmap.device)
     if out.numel() == 0:
         return out
@@ -314,21 +334,31 @@ def fused_mask_branch(fmap, boxes, classes, weights, pool: int = 14, num_classes
     fmap = _pad_channels(fmap.to(torch.bfloat16), cf).contiguous()
     boxes = boxes.contiguous()
     classes = classes.to(torch.int32).contiguous()
-    wout = weights["wo"][:co, :num_classes].contiguous()   # block 0 of the class conv
+    wout = wo[:co, :num_classes].contiguous()   # block 0 of the class conv
     x0 = torch.empty((m, cf), dtype=torch.int8, device=fmap.device)
     xa = torch.empty((m, co), dtype=torch.int8, device=fmap.device)
     xb = torch.empty((m, co), dtype=torch.int8, device=fmap.device)
-    ptrs = [fmap, boxes, classes, weights["w1"], weights["w2"], weights["w3"], weights["w4"],
-            weights["wd"], wout, weights["wsc"], weights["bias"], weights["asc"], x0, xa, xb,
-            out]
+    ptrs = [fmap, boxes, classes, w1, w2, w3, w4, wd, wout, wsc, bias, asc, x0, xa, xb, out]
     with torch.cuda.device(fmap.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = _kernel()(*[t.data_ptr() for t in ptrs], b, h, w, cf, k, pool, co, num_classes,
-                       4 * co, weights["asc"].shape[1], stream)
+                       4 * co, asc.shape[1], stream)
     if rc != 0:
         raise RuntimeError(f"fused_mask_branch kernel launch failed with CUDA error {rc}")
     fused_mask_branch.launches += 1
     return out
 
 
+def _branch_fake(fmap, boxes, classes, *args):
+    pool = args[-2]
+    return fmap.new_empty((*boxes.shape[:2], 2 * pool, 2 * pool), dtype=torch.float32)
+
+
 fused_mask_branch.launches = 0
+_LIB = torch.library.Library("mask_yolo_tpu_torch", "FRAGMENT")
+_LIB.define("fused_mask_branch(Tensor fmap, Tensor boxes, Tensor classes, Tensor w1, "
+            "Tensor w2, Tensor w3, Tensor w4, Tensor wd, Tensor wo, Tensor wsc, Tensor bias, "
+            "Tensor asc, int pool, int num_classes) -> Tensor")
+_LIB.impl("fused_mask_branch", _branch_cpu, "CPU")
+_LIB.impl("fused_mask_branch", _branch_cuda, "CUDA")
+torch.library.register_fake("mask_yolo_tpu_torch::fused_mask_branch", _branch_fake, lib=_LIB)

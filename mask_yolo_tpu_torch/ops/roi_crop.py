@@ -7,13 +7,18 @@ tensor it runs the plain twin `roi_align.crop_and_resize`. The twin is the
 kernel's reference, never its fallback: there is no path from a CUDA tensor
 to it.
 
-For training, an fmap that requires grad goes through an
-`autograd.Function` whose backward is `crop_rois_backward`: the kernel
-`crop_rois_backward_f32` or `crop_rois_backward_bf16` (by the gradient's
-dtype) on CUDA tensors, the twin `roi_align.crop_and_resize_backward` on CPU
-tensors (for bf16 on the upcast gradient, rounded once at the end, as the
-kernel sums in f32 and rounds at the store). The boxes get no gradient, as
-in JAX (`roi_align.crop_and_resize` stops it).
+Both directions are `torch.library` custom ops, `mask_yolo_tpu_torch::crop_rois`
+and `::crop_rois_backward`, each with a CUDA kernel (the launch below), a CPU
+kernel (the twin) and a fake that gives the output's shape and dtype, and no
+device-generic implementation: a tensor on another device finds no kernel.
+The ops are what `torch.export` records (export.py), so an exported program
+launches the kernel too. `register_autograd` ties the backward to the forward:
+the kernel `crop_rois_backward_f32` or `crop_rois_backward_bf16` (by the
+gradient's dtype) on CUDA tensors, the twin `roi_align.crop_and_resize_backward`
+on CPU tensors (for bf16 on the upcast gradient, rounded once at the end, as
+the kernel sums in f32 and rounds at the store). The boxes get no gradient, as
+in JAX (`roi_align.crop_and_resize` stops it). The ops are registered when
+this module is imported; the kernel is built at its first launch.
 
 The backward takes any C and P: the gather kernel needs C % 4 == 0 and
 P <= 64, and the same entry point sends other shapes to a plain
@@ -25,8 +30,9 @@ that touch the column; then each band sums only through its list.
 `backward_index` and `backward_through_index` are the plain versions of the
 two stages.
 
-`crop_rois.launches` and `crop_rois_backward.launches` count kernel launches
-(CPU calls do not count), so a run can show that it went through the kernels.
+`crop_rois.launches` and `crop_rois_backward.launches` count kernel launches,
+in the ops' CUDA kernels (CPU calls do not count), so a run, an exported
+program's included, can show that it went through the kernels.
 """
 
 from __future__ import annotations
@@ -94,9 +100,16 @@ def _check(name, t, boxes):
         raise ValueError(f"{name} needs contiguous tensors on cuda")
 
 
-def _forward(fmap, boxes, pool):
-    if fmap.device.type == "cpu":
-        return crop_and_resize(fmap, boxes, (pool, pool))
+_LIB = torch.library.Library("mask_yolo_tpu_torch", "FRAGMENT")
+_LIB.define("crop_rois(Tensor fmap, Tensor boxes, int pool) -> Tensor")
+_LIB.define("crop_rois_backward(Tensor grad, Tensor boxes, SymInt h, SymInt w) -> Tensor")
+
+
+def _forward_cpu(fmap, boxes, pool):
+    return crop_and_resize(fmap, boxes, (pool, pool))
+
+
+def _forward_cuda(fmap, boxes, pool):
     b, h, w, c = fmap.shape
     k = boxes.shape[1]
     out = torch.empty((b, k, pool, pool, c), dtype=fmap.dtype, device=fmap.device)
@@ -106,17 +119,20 @@ def _forward(fmap, boxes, pool):
     return out
 
 
-class _CropRois(torch.autograd.Function):
-    @staticmethod
-    def forward(ctx, fmap, boxes, pool):
-        ctx.save_for_backward(boxes)
-        ctx.fmap_hw = tuple(fmap.shape[1:3])
-        return _forward(fmap, boxes, pool)
+def _forward_fake(fmap, boxes, pool):
+    b, _, _, c = fmap.shape
+    return fmap.new_empty((b, boxes.shape[1], pool, pool, c))
 
-    @staticmethod
-    def backward(ctx, grad):
-        (boxes,) = ctx.saved_tensors
-        return crop_rois_backward(grad.contiguous(), boxes, ctx.fmap_hw), None, None
+
+def _setup_backward(ctx, inputs, output):
+    fmap, boxes, _ = inputs
+    ctx.save_for_backward(boxes)
+    ctx.fmap_hw = tuple(fmap.shape[1:3])
+
+
+def _backward(ctx, grad):
+    (boxes,) = ctx.saved_tensors
+    return crop_rois_backward(grad.contiguous(), boxes, ctx.fmap_hw), None, None
 
 
 def crop_rois(fmap, boxes, pool: int):
@@ -138,9 +154,7 @@ def crop_rois(fmap, boxes, pool: int):
     if pool < 1:
         raise ValueError(f"pool must be >= 1, got {pool}")
     _check("fmap", fmap, boxes)
-    if not (torch.is_grad_enabled() and fmap.requires_grad):
-        return _forward(fmap, boxes, pool)
-    return _CropRois.apply(fmap, boxes.detach(), pool)
+    return torch.ops.mask_yolo_tpu_torch.crop_rois(fmap, boxes.detach(), pool)
 
 
 def _scratch_bytes(b, h, w, k, pool):
@@ -167,8 +181,14 @@ def crop_rois_backward(grad, boxes, fmap_hw):
                         f"{grad.dtype}, {boxes.dtype}")
     _check("grad", grad, boxes)
     h, w = fmap_hw
-    if grad.device.type == "cpu":
-        return crop_and_resize_backward(grad.float(), boxes, (h, w)).to(grad.dtype)
+    return torch.ops.mask_yolo_tpu_torch.crop_rois_backward(grad, boxes, h, w)
+
+
+def _backward_cpu(grad, boxes, h, w):
+    return crop_and_resize_backward(grad.float(), boxes, (h, w)).to(grad.dtype)
+
+
+def _backward_cuda(grad, boxes, h, w):
     b, k, pool, _, c = grad.shape
     if k * pool == 0:   # no samples: the index kernel would launch an empty grid
         return torch.zeros((b, h, w, c), dtype=grad.dtype, device=grad.device)
@@ -180,6 +200,10 @@ def crop_rois_backward(grad, boxes, fmap_hw):
                 b, h, w, c, k, pool)
         crop_rois_backward.launches += 1
     return out
+
+
+def _backward_fake(grad, boxes, h, w):
+    return grad.new_empty((grad.shape[0], h, w, grad.shape[-1]))
 
 
 def _tent_weights(boxes, fmap_hw, pool):
@@ -250,3 +274,11 @@ def index_from_scratch(scratch, b, h, w, k, pool):
 
 crop_rois.launches = 0
 crop_rois_backward.launches = 0
+_LIB.impl("crop_rois", _forward_cpu, "CPU")
+_LIB.impl("crop_rois", _forward_cuda, "CUDA")
+torch.library.register_fake("mask_yolo_tpu_torch::crop_rois", _forward_fake, lib=_LIB)
+torch.library.register_autograd("mask_yolo_tpu_torch::crop_rois", _backward,
+                                setup_context=_setup_backward, lib=_LIB)
+_LIB.impl("crop_rois_backward", _backward_cpu, "CPU")
+_LIB.impl("crop_rois_backward", _backward_cuda, "CUDA")
+torch.library.register_fake("mask_yolo_tpu_torch::crop_rois_backward", _backward_fake, lib=_LIB)

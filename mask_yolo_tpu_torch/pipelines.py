@@ -50,7 +50,7 @@ def _take(x, idx):
                         .expand(idx.shape + x.shape[2:]))
 
 
-def training_loss(net, batch, config, seen, train: bool = True):
+def training_loss(net, batch, config, seen, train: bool = True, group=None):
     """The 'training'-mode forward and combined loss.
 
     batch: dict of tensors on the network's device —
@@ -58,6 +58,8 @@ def training_loss(net, batch, config, seen, train: bool = True):
       [B, gh, gw, nb, 5+C], true_boxes [B, 1, 1, 1, T, 4], gt_class_ids
       [B, G] int, gt_boxes [B, G, 4] pixel xyxy, gt_masks [B, h, w, G] bool.
     seen: batches seen (host number), for the YOLO loss's warm-up.
+    group: the data group of a mesh, whose global batch the losses'
+    normalizers count (losses.py); this rank's loss is then its share.
     Returns (loss, metrics) with metrics detached.
     """
     net.train(train and bool(config.TRAIN_BN))
@@ -82,8 +84,8 @@ def training_loss(net, batch, config, seen, train: bool = True):
 
     pred_masks = net.mask_branch(rois, fmap)
     y_loss, metrics = yolo_loss(batch["yolo_target"], grid, batch["true_boxes"],
-                                config, seen)
-    m_loss = mask_loss(target_masks, target_class_ids, pred_masks)
+                                config, seen, group=group)
+    m_loss = mask_loss(target_masks, target_class_ids, pred_masks, group=group)
     lw = config.LOSS_WEIGHTS
     total = (y_loss * lw.get("yolo_sum_loss", 1.0)
              + m_loss * lw.get("myolo_mask_loss", 1.0))
@@ -92,13 +94,14 @@ def training_loss(net, batch, config, seen, train: bool = True):
     return total, metrics
 
 
-def yolo_only_loss(net, batch, config, seen, train: bool = True):
+def yolo_only_loss(net, batch, config, seen, train: bool = True, group=None):
     """The 'yolo'-mode forward: trunk and YOLO loss only. batch needs image,
-    yolo_target and true_boxes. Returns (loss, metrics)."""
+    yolo_target and true_boxes. group as training_loss's. Returns (loss,
+    metrics)."""
     net.train(train and bool(config.TRAIN_BN))
     grid, _ = net.trunk(images_f32(batch["image"]))
     loss, metrics = yolo_loss(batch["yolo_target"], grid, batch["true_boxes"],
-                              config, seen)
+                              config, seen, group=group)
     metrics["loss"] = loss.detach()
     return loss, metrics
 

@@ -833,9 +833,13 @@ class QuantizedDetector:
     def detect_outputs(self, images, fused_mask: bool | None = None,
                        fused_ds: bool | None = None, mesh=None):
         """Same contract as pipelines.detect_outputs, int8 conv stack.
-        fused_mask None reads QUANT_FUSED_MASK."""
-        if mesh is not None:
-            raise NotImplementedError("int8 detect over a mesh " + _NOT_PORTED.format(11))
+        fused_mask None reads QUANT_FUSED_MASK.
+
+        mesh: a parallel.mesh.Mesh; `images` is then this rank's local batch.
+        The int8 weights are replicated and the pipeline treats each image on
+        its own, so each rank detects its slice with no collective (the JAX
+        package's shard_map branch)."""
+        del mesh   # every rank runs its local batch as a single process does
         if fused_mask is None:
             fused_mask = bool(getattr(self.config, "QUANT_FUSED_MASK", False))
         return self.detect_fn(fused_mask, fused_ds)(images)

@@ -23,6 +23,13 @@ are its tensors, updated in place), the optimizer state and the step, which
 also drives the YOLO loss's warm-up. Checkpoints are `torch.save` files of
 {params, batch_stats, opt_state, step, epoch} keyed by torch state_dict keys;
 orbax checkpoints of the JAX package are not read.
+
+On a mesh (parallel/mesh.py) under tensor parallelism a rank holds slices of
+the wide parameters, statistics and Adam moments. Its optimizer sums the
+slices' squared norms over the model group for the global-norm clip
+(`Optimizer.shard`). A checkpoint holds the whole tree: every rank takes
+part in gathering it and the chief alone writes it, so it resumes on one
+device as on the mesh (`resume_train_state` slices it again).
 """
 
 from __future__ import annotations
@@ -34,7 +41,10 @@ import warnings
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
+from ..parallel import mesh as mesh_lib
+from ..parallel.collectives import all_reduce_
 from ..weights import flax_path
 
 B1, B2, EPS = 0.9, 0.999, 1e-8
@@ -109,6 +119,14 @@ class Optimizer:
         self.clip = float(getattr(config, "GRADIENT_CLIP_NORM", 0) or 0)
         self.lr = make_lr_schedule(learning_rate, config, total_steps)
         self.keys = [k for k, t in trainable.items() if t]
+        self.sharded, self.model_group = None, None
+
+    def shard(self, shardings: dict, group):
+        """Tensor parallelism: the keys sharded over `group` (a model group)
+        hold this rank's slices; the clip's global norm sums their squares
+        over the group."""
+        self.model_group = group
+        self.sharded = [shardings.get(k) is not None for k in self.keys]
 
     def init(self, params: dict) -> dict:
         return {"count": 0, "schedule": callable(self.lr),
@@ -135,7 +153,14 @@ class Optimizer:
              else torch.nan_to_num(grads[k], nan=0.0, posinf=0.0, neginf=0.0)
              for k in self.keys]
         if self.clip > 0:
-            norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(g)))
+            norms = torch.stack(torch._foreach_norm(g))
+            if self.model_group is not None and any(self.sharded):
+                squares = norms * norms
+                sliced = torch.tensor(self.sharded, device=norms.device)
+                norm = torch.sqrt(squares[~sliced].sum()
+                                  + all_reduce_(squares[sliced].sum(), self.model_group))
+            else:
+                norm = torch.linalg.vector_norm(norms)
             keep = norm < self.clip
             one = torch.ones_like(norm)
             # (g / ‖g‖)·max when clipping, (g / 1)·1 = g otherwise
@@ -186,11 +211,23 @@ def _host(tree):
     return tree.detach().cpu().clone() if torch.is_tensor(tree) else tree
 
 
-def save_checkpoint(path: str, state: TrainState, epoch: int = 0):
+def save_checkpoint(path: str, state: TrainState, epoch: int = 0, mesh=None,
+                    shardings=None):
     """Save params, BatchNorm statistics, optimizer moments, step and epoch,
-    so that a run resumes exactly."""
-    torch.save({"params": _host(state.params), "batch_stats": _host(state.batch_stats),
-                "opt_state": _host(state.opt_state), "step": int(state.step),
+    so that a run resumes exactly. On a mesh every rank calls it: the whole
+    tree is gathered (slices of `shardings` over the model group) and the
+    chief (rank 0) alone writes it."""
+    params, stats, opt_state = state.params, state.batch_stats, state.opt_state
+    if mesh is not None and shardings:
+        params = mesh_lib.gather_tree({k: v.detach() for k, v in params.items()},
+                                      shardings, mesh)
+        stats = mesh_lib.gather_tree(stats, shardings, mesh)
+        opt_state = {**opt_state, **{m: mesh_lib.gather_tree(opt_state[m], shardings, mesh)
+                                     for m in ("mu", "nu") if m in opt_state}}
+    if dist.is_initialized() and dist.get_rank() != 0:
+        return
+    torch.save({"params": _host(params), "batch_stats": _host(stats),
+                "opt_state": _host(opt_state), "step": int(state.step),
                 "epoch": int(epoch)}, path)
 
 
@@ -210,16 +247,24 @@ def load_into(net, params: dict, batch_stats: dict):
             live[key].copy_(value)
 
 
-def resume_train_state(path: str, fresh_state: TrainState, tx: Optimizer):
+def resume_train_state(path: str, fresh_state: TrainState, tx: Optimizer, mesh=None,
+                       shardings=None):
     """Restore a checkpoint of `save_checkpoint` into `fresh_state`'s network
-    and return (state, epoch). If the checkpoint's optimizer state does not
-    fit `tx` (another LR_SCHEDULE kind, other frozen layers), the moments are
-    reset to the fresh ones with a warning; params, BatchNorm statistics,
-    step and epoch still restore."""
+    and return (state, epoch). On a mesh with tensor parallelism, pass its
+    `shardings`: the whole tree is sliced to this rank's share. If the
+    checkpoint's optimizer state does not fit `tx` (another LR_SCHEDULE
+    kind, other frozen layers), the moments are reset to the fresh ones with
+    a warning; params, BatchNorm statistics, step and epoch still restore."""
     ckpt = load_checkpoint(path)
+    opt_state = ckpt.get("opt_state") or {}
+    if mesh is not None and shardings:
+        ckpt["params"] = mesh_lib.shard_tree(ckpt["params"], shardings, mesh)
+        ckpt["batch_stats"] = mesh_lib.shard_tree(ckpt.get("batch_stats") or {}, shardings,
+                                                  mesh)
+        opt_state = {**opt_state, **{m: mesh_lib.shard_tree(opt_state[m], shardings, mesh)
+                                     for m in ("mu", "nu") if m in opt_state}}
     load_into(fresh_state.net, ckpt["params"], ckpt.get("batch_stats") or {})
     params = fresh_state.params
-    opt_state = ckpt.get("opt_state") or {}
     if tx.same_structure(opt_state, params):
         dev = {k: params[k].device for k in tx.keys}
         opt_state = {"count": int(opt_state["count"]), "schedule": opt_state["schedule"],

@@ -143,8 +143,10 @@ def test_evaluate_dataset_takes_duck_typed_models_and_refuses_a_mesh(bridged):
 
     assert (evaluate_dataset(Adapter(), ds, cfg, batch_size=2)["box_ap50"]
             == evaluate_dataset(model, ds, cfg, batch_size=2)["box_ap50"])
-    with pytest.raises(NotImplementedError, match="#8"):
-        evaluate_dataset(model, ds, cfg, mesh=True)
+    # a mesh is taken now (the model's own, one rank in one process; more
+    # ranks in tests/test_torch_parallel.py) and gives the same AP
+    assert (evaluate_dataset(model, ds, cfg, batch_size=2, mesh=True)["box_ap50"]
+            == evaluate_dataset(model, ds, cfg, batch_size=2)["box_ap50"])
 
 
 def test_ap_callback_history_best_sidecar_and_weights(tmp_path):

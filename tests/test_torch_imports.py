@@ -110,3 +110,14 @@ def test_importing_the_port_pulls_in_no_optional_package():
                           text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.strip() == "[]"
+
+
+# the export and parallel slice's modules, covered the same way (the rank
+# workers of tests/test_torch_parallel.py import them with no JAX present)
+EXPORT_PARALLEL_SLICE = ("export", "parallel.collectives", "parallel.mesh",
+                         "parallel.distributed", "parallel.inference")
+
+
+@pytest.mark.parametrize("name", EXPORT_PARALLEL_SLICE)
+def test_export_parallel_module_is_covered(name):
+    assert ROOT / "mask_yolo_tpu_torch" / (name.replace(".", "/") + ".py") in PORT_FILES

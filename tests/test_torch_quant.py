@@ -20,6 +20,7 @@ from mask_yolo_tpu.models.network import MaskYoloNet as JaxNet
 from mask_yolo_tpu.ops import pallas_mask
 from mask_yolo_tpu_torch import MaskYOLO, quant, weights
 from mask_yolo_tpu_torch.config import Config
+from mask_yolo_tpu_torch.parallel.mesh import build_mesh
 from mask_yolo_tpu_torch.serve import BatchingExecutor
 from test_torch_slice import _spread
 
@@ -291,8 +292,11 @@ def test_unported_entry_points_raise(qsetup):
     det = quant.QuantizedDetector(weights.from_jax_graph(jdet.graph), PortQ())
     assert callable(det.infer_yolo_fn())          # ported (test_torch_infer_yolo.py)
     assert callable(det.finetune)                 # ported (test_torch_quant_tools.py)
-    with pytest.raises(NotImplementedError, match="item 11"):
-        det.detect_outputs(torch.zeros((1, *JaxQ.IMAGE_SHAPE)), mesh=object())
+    # ported: on a mesh each rank detects its local batch (test_torch_parallel.py)
+    images = torch.zeros((1, *JaxQ.IMAGE_SHAPE))
+    on_mesh = det.detect_outputs(images, mesh=build_mesh(None))
+    for k, v in det.detect_outputs(images).items():
+        assert torch.equal(on_mesh[k], v), k
 
 
 def test_fused_ds_needs_a_float_scale(qsetup):

@@ -569,7 +569,10 @@ def test_training_weights_follow_flax_default_init():
 def test_held_out_options_raise_naming_their_roadmap_item(tmp_path, what):
     """What is still held out raises, naming its ROADMAP item; bf16 training,
     augmentation, data workers, profiler traces and a Keras h5
-    yolo_pretrain_dir are ported and run."""
+    yolo_pretrain_dir are ported and run. Data parallelism is ported
+    (tests/test_torch_parallel.py): in one process, DATA_PARALLEL = 2 asks
+    for more ranks than the job has and raises as the JAX package's mesh
+    does."""
     cfg = port_config(ShapesTiny())
     ds = shapes(2)
 
@@ -606,6 +609,10 @@ def test_held_out_options_raise_naming_their_roadmap_item(tmp_path, what):
     }
     if what in ("bf16", "augmentation", "data_workers", "profile_dir", "keras_h5"):
         cases[what]()   # (a one-step epoch ends before the profiler's window opens)
+        return
+    if what == "data_parallel":
+        with pytest.raises(ValueError, match="ranks"):
+            cases[what]()
         return
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         cases[what]()

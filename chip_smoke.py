@@ -119,6 +119,29 @@ Phases, each fatal on failure (nothing is caught):
                  crop through K2 forward and backward; ms per batch and its
                  split into trunk, mask branch and the rest (recorded)
 
+ F1. FPN        the ResNet-50 + FPN backbone. (a) K2 at the pyramid's shapes
+                 (Coco416FpnConfig's: bf16, B=16, K=48 on 52², 26², 13² x 256;
+                 TrainFpnConfig's: f32, B=16, K=32 on 28², 14², 7² x 256, with
+                 the backward) against the plain twin at phase 3's and T1's
+                 bounds, timed as there; multilevel_crop_rois (one K2 call a
+                 level) against the plain multi-level crop, levels identical,
+                 forward and backward. (b) detect_batch at 416², batch 16,
+                 bf16 on DenseShapes scenes: exactly 3 K2 launches; the same
+                 trunk outputs through the plain multi-level crop (classes,
+                 valid identical, masks >= 99.5 %); ms per batch split into
+                 trunk, 3 crops, mask convs and the rest. (e) export_model
+                 (symbolic batch) run in a child process at batch 1 and 16:
+                 bit-equal to the live detect_batch, 3 crop_rois nodes, 3 K2
+                 a call. (c) quantize on 8 images (hybrid: float trunk, int8
+                 mask head): QUANT_FUSED_MASK refused; 3 K2 and no K1 or K3;
+                 classes equal to (b)'s, scores within 1e-5; ms per batch;
+                 on a network of flax's default initializers (the JAX test's
+                 setting) the int8 mask probabilities within 0.05 max / 0.02
+                 mean of the float head's on (b)'s ROIs (on the He-normal
+                 weights of (b), recorded only). (d) two f32 train
+                 steps at 224², batch 16: finite loss, 3 K2 forward and 3
+                 backward a step, no gradient into the neck; ms per step and
+                 peak memory.
  X1. export     MaskYOLO.export_model (symbolic batch) of the bf16 model of
                  phase 4 and the int8 model of phase 9, then
                  ExportedDetector.load in a child process with nothing but
@@ -148,7 +171,7 @@ Phases, each fatal on failure (nothing is caught):
                  at 1 and 2 ranks (recorded). Every rank is a child process
                  (`--child`) killed after 420 s.
 
-The last lines are a JSON line of X1's and P1's results, the `nvidia-smi`
+The last lines are a JSON line of F1's results, one of X1's and P1's, the `nvidia-smi`
 name/power-limit line, a JSON line of kernels (times, launches per path,
 bounds), and {"ok": true, "device": {...}}. Without a CUDA device the
 script exits 1 and prints no result.
@@ -188,7 +211,7 @@ import torch.nn.functional as F
 from torch.profiler import ProfilerActivity, profile
 
 from mask_yolo_tpu_torch import (CocoStyleConfig, MaskYOLO, evaluate_dataset,
-                                 make_ap_eval_callback, native, quant)
+                                 make_ap_eval_callback, native, quant, weights)
 from mask_yolo_tpu_torch.data import augment
 from mask_yolo_tpu_torch.data.coco import CocoDataset, dataset_to_coco_json
 from mask_yolo_tpu_torch.data.dense_shapes import DenseShapesDataset
@@ -203,8 +226,9 @@ from mask_yolo_tpu_torch.ops.mask_fused import (fused_mask_branch,
                                                 pack_mask_weights, unpack_mask_weights,
                                                 weights_to)
 from mask_yolo_tpu_torch.ops.roi_align import (crop_and_resize, crop_and_resize_backward,
-                                               interp_matrix)
-from mask_yolo_tpu_torch.ops.roi_crop import crop_rois, crop_rois_backward
+                                               fpn_levels, interp_matrix,
+                                               multilevel_crop_and_resize)
+from mask_yolo_tpu_torch.ops.roi_crop import crop_rois, crop_rois_backward, multilevel_crop_rois
 from mask_yolo_tpu_torch.parallel import distributed as parallel_distributed
 from mask_yolo_tpu_torch.parallel import mesh as parallel_mesh
 from mask_yolo_tpu_torch.pipelines import (detect_from_callables, images_f32,
@@ -302,6 +326,19 @@ class Coco416PcConfig(Coco416Config):
 class TrainBf16Config(TrainConfig):
     """TrainConfig computing in bf16 on f32 master weights."""
     COMPUTE_DTYPE = "bfloat16"
+
+
+class Coco416FpnConfig(CocoStyleConfig):
+    """F1: CocoStyleConfig (416², 13x13x5 grid, 81 classes, K=100,
+    MASK_TOP_K 48, bf16) with the ResNet-50 + FPN backbone: P3, P4, P5 at
+    52², 26², 13² x 256."""
+    BACKBONE = "resnet50_fpn"
+
+
+class TrainFpnConfig(TrainConfig):
+    """F1: TrainConfig (ShapesConfig, 224², batch 16, f32, K=32) with the
+    ResNet-50 + FPN backbone: P3, P4, P5 at 28², 14², 7² x 256."""
+    BACKBONE = "resnet50_fpn"
 
 
 class DataConfig(ShapesConfig):
@@ -497,12 +534,13 @@ def check_crop(tag, fmap, boxes, pool, tol):
     return err, want
 
 
-def phase_kernel(dev, rng, new, parent=None):
-    """K2 forward at each of FWD_SHAPES: the wrapper vs the plain twin, then
-    times through `new` (and `parent`, a CropLib) warm and cold, the plain
-    twin's and grid_sample's. Returns {shape tag: dict of the JSON keys}."""
+def phase_kernel(dev, rng, new, parent=None, shapes=FWD_SHAPES, edges=True):
+    """K2 forward at each of `shapes` (FWD_SHAPES): the wrapper vs the plain
+    twin, then times through `new` (and `parent`, a CropLib) warm and cold,
+    the plain twin's and grid_sample's; with `edges`, the edge shapes too.
+    Returns {shape tag: dict of the JSON keys}."""
     results = {}
-    for tag, s in FWD_SHAPES.items():
+    for tag, s in shapes.items():
         dtype, b, h, w, c, k, pool = (s[key] for key in ("dtype", "b", "h", "w", "c", "k", "pool"))
         what = f"{str(dtype)[6:]} B={b} K={k} {h}x{w}x{c} P={pool}"
         fmap = torch.tensor(rng.standard_normal((b, h, w, c), dtype=np.float32),
@@ -559,7 +597,7 @@ def phase_kernel(dev, rng, new, parent=None):
         torch.cuda.empty_cache()
     # edge shapes: channels that fill no 16-byte vector, one row or one
     # column, P = 1 or > 32
-    for dtype in (torch.float32, torch.bfloat16):
+    for dtype in (torch.float32, torch.bfloat16) if edges else ():
         for b, h, w, c, k, pool in ((2, 1, 5, 6, 3, 1), (1, 7, 1, 12, 2, 3), (1, 9, 70, 20, 3, 33)):
             fmap = torch.tensor(rng.standard_normal((b, h, w, c), dtype=np.float32),
                                 device=dev).to(dtype)
@@ -1115,15 +1153,16 @@ def check_backward(tag, g, boxes, hw):
     return err, want
 
 
-def phase_train_kernel(dev, rng, new, dtype, parent=None):
-    """K2 backward in `dtype` at each of BWD_SHAPES: the wrapper vs its plain
-    version and against itself (two runs bit-identical), the index kernel's
-    output vs its plain version, then times through `new` (and `parent`, a
-    CropLib, f32 only), the plain version's and autograd through
-    grid_sample's. Returns a list of dicts of the JSON keys, one a shape."""
+def phase_train_kernel(dev, rng, new, dtype, parent=None, shapes=BWD_SHAPES, edges=True):
+    """K2 backward in `dtype` at each of `shapes` (BWD_SHAPES): the wrapper vs
+    its plain version and against itself (two runs bit-identical), the index
+    kernel's output vs its plain version, then times through `new` (and
+    `parent`, a CropLib, f32 only), the plain version's and autograd through
+    grid_sample's; with `edges`, the edge shapes and autograd's route to the
+    kernel too. Returns a list of dicts of the JSON keys, one a shape."""
     results = []
     name = str(dtype)[6:]
-    for s in BWD_SHAPES:
+    for s in shapes:
         boxes = torch.tensor(backward_boxes(rng, s["b"], s["k"]), device=dev)
         g = torch.tensor(rng.standard_normal((s["b"], s["k"], s["pool"], s["pool"], s["c"]),
                                              dtype=np.float32), device=dev).to(dtype)
@@ -1168,6 +1207,8 @@ def phase_train_kernel(dev, rng, new, dtype, parent=None):
                         "library_ms": library_ms, "at": f"{name}, {tag}"})
         del g, boxes, want, out, old_out, scratch, old_scratch, lib_grad, lib
         torch.cuda.empty_cache()
+    if not edges:
+        return results
     # edge shapes: a map wider than one block's columns, one row or one
     # column, P = 1 or > 32, lists longer than the 256 entries a block holds
     # at once
@@ -1672,6 +1713,19 @@ def dense_images(count, seed, size):
     return np.stack([ds.load_image(i) for i in ds.image_ids])
 
 
+def check_outputs(out, cfg, batch, what):
+    """A 416² detect's outputs: shapes and dtypes, finite, at least one valid
+    detection an image on average, classes in range."""
+    k, (h, w) = cfg.DETECTION_MAX_INSTANCES, cfg.IMAGE_SHAPE[:2]
+    if tuple(out["masks"].shape) != (batch, k, h, w) or out["masks"].dtype != torch.bool \
+            or tuple(out["boxes"].shape) != (batch, k, 4):
+        raise AssertionError(f"{what}: masks {tuple(out['masks'].shape)} {out['masks'].dtype}")
+    if not (torch.isfinite(out["scores"]).all() and torch.isfinite(out["boxes"]).all()):
+        raise AssertionError(f"{what}: non-finite scores or boxes")
+    if int(out["valid"].sum()) < batch or int(out["classes"].max()) >= cfg.NUM_CLASSES:
+        raise AssertionError(f"{what}: too few detections or a class out of range")
+
+
 def coco_split(tag, model, det, images, cfg, smi, total_ms):
     """The split of one detect_batch into trunk, mask branch and the rest
     (decode, NMS, top-K, select, paste), each timed alone on the batch's own
@@ -1704,7 +1758,7 @@ def phase_coco416(dev, smi, counts):
     float and in three int8 forms, with launch counts, the fused result
     against the chained layers, and ms per batch."""
     cfg = Coco416Config()
-    k, (h, w) = cfg.DETECTION_MAX_INSTANCES, cfg.IMAGE_SHAPE[:2]
+    h, w = cfg.IMAGE_SHAPE[:2]
     t0 = time.perf_counter()
     images_np = dense_images(COCO_BATCH + COCO_CALIB, SEED + 5, h)
     images = torch.as_tensor(images_np[:COCO_BATCH], device=dev)
@@ -1712,18 +1766,9 @@ def phase_coco416(dev, smi, counts):
     log(f"[coco416] {len(images_np)} DenseShapes scenes at {h}x{w} (80 classes) generated in "
         f"{time.perf_counter() - t0:.1f} s")
 
-    def check_outputs(out, what):
-        if tuple(out["masks"].shape) != (COCO_BATCH, k, h, w) or out["masks"].dtype != torch.bool \
-                or tuple(out["boxes"].shape) != (COCO_BATCH, k, 4):
-            raise AssertionError(f"{what}: masks {tuple(out['masks'].shape)} {out['masks'].dtype}")
-        if not (torch.isfinite(out["scores"]).all() and torch.isfinite(out["boxes"]).all()):
-            raise AssertionError(f"{what}: non-finite scores or boxes")
-        if int(out["valid"].sum()) < COCO_BATCH or int(out["classes"].max()) >= cfg.NUM_CLASSES:
-            raise AssertionError(f"{what}: too few detections or a class out of range")
-
     model = MaskYOLO("inference", cfg, seed=SEED, device=dev)
     out = run_main_path(lambda: model.detect_batch(images), counts)
-    check_outputs(out, "bf16")
+    check_outputs(out, cfg, COCO_BATCH, "bf16")
     launched = {name: counts[name][-1] for name in KERNELS}
     log(f"[coco416] bf16 detect_batch B={COCO_BATCH}: {int(out['valid'].sum())} valid detections, "
         f"{int(out['masks'].sum())} mask pixels; launches {launched}")
@@ -1758,7 +1803,7 @@ def phase_coco416(dev, smi, counts):
                 raise AssertionError("the finetune's loss rose or its crop missed K2's backward")
         out = run_main_path(lambda: model.detect_batch(images), counts,
                             ("fused_mask_branch",))
-        check_outputs(out, tag)
+        check_outputs(out, qcfg, COCO_BATCH, tag)
         launched = (counts["fused_ds_block"][-1], counts["fused_mask_branch"][-1],
                     counts["crop_rois"][-1])
         if launched != (want_k1, K3_LAUNCHES, 0):
@@ -2355,7 +2400,290 @@ def phase_parallel(dev, smi, workdir):
     return {"nccl": nccl, **{kind: r[0] for kind, r in ranks.items()}}, counts
 
 
-CHILDREN = {"export": child_export, "nccl": child_nccl,
+# ---- phase F1: the ResNet-50 + FPN backbone ------------------------------------
+
+FPN_LEVELS = ("P3", "P4", "P5")
+# K2 at the pyramid's shapes: Coco416FpnConfig's detect (bf16, MASK_TOP_K 48)
+# and TrainFpnConfig's training crop (f32, MASK_TRAIN_TOP_ROIS 32), every
+# level cropped on all K ROIs
+FPN_FWD_SHAPES = {
+    **{f"fpn416_{lv}": dict(dtype=torch.bfloat16, b=16, h=side, w=side, c=256, k=48, pool=14)
+       for lv, side in zip(FPN_LEVELS, (52, 26, 13))},
+    **{f"fpn224_{lv}": dict(dtype=torch.float32, b=16, h=side, w=side, c=256, k=32, pool=14)
+       for lv, side in zip(FPN_LEVELS, (28, 14, 7))}}
+FPN_BWD_SHAPES = [dict(b=16, h=side, w=side, c=256, k=32, pool=14) for side in (28, 14, 7)]
+FPN_BATCH, FPN_CALIB, FPN_TRAIN_STEPS = 16, 8, 2
+FPN_EXPORT_BATCHES = (1, 16)
+FPN_SCORE_TOL = 1e-5               # (c): the hybrid's scores against the float detect's
+# (c): int8 mask probabilities against the float head's on the same ROIs, the
+# bound of the JAX package's test_hybrid_quantization_resnet_fpn, held as
+# there on a network of flax's default initializers. The He-normal weights
+# of the smoke's other models drive the mask logits to hundreds, where the
+# per-tensor int8 grid flips whole pixels (a CPU run at 416²: max 1.0, mean
+# 0.030, against 0.005 and 0.0005 on flax's initializers); that model's
+# figure is recorded beside it.
+FPN_MASK_MAX, FPN_MASK_MEAN = 0.05, 0.02
+FPN_LAUNCHES = {"crop_rois": 3, "crop_rois_backward": 0, "fused_ds_block": 0,
+                "fused_mask_branch": 0}
+
+
+def level_spread_boxes(rng, b, k):
+    """Boxes of sides 0.05-1.0 (normalized), so that at 416² FPN eq. 1 sends
+    them to all three levels, the first two of each image off the map."""
+    side = rng.uniform(0.05, 1.0, (b, k, 2))
+    corner = rng.uniform(0.0, 1.0, (b, k, 2)) * (1.0 - side)
+    boxes = np.concatenate([corner, corner + side], axis=-1)
+    boxes[:, 0] = [-0.2, -0.1, 0.5, 0.6]
+    boxes[:, 1] = [0.6, 0.55, 1.3, 1.2]
+    return boxes.astype(np.float32)
+
+
+def check_multilevel(dev, rng, dtype, b, k, sides, hw, backward):
+    """multilevel_crop_rois (one K2 call a level) against its plain twin
+    multilevel_crop_and_resize on the same pyramid: the levels the card
+    assigns equal the CPU's, each ROI's crop is its level's K2 crop exactly,
+    the values within CROP_TOL; with `backward`, the gradient into every
+    level (one K2 backward a level) within BWD_TOL of autograd through the
+    plain twin."""
+    maps = [torch.tensor(rng.standard_normal((b, side, side, 256), dtype=np.float32),
+                         device=dev).to(dtype) for side in sides]
+    boxes_np = level_spread_boxes(rng, b, k)
+    boxes = torch.tensor(boxes_np, device=dev)
+    level = fpn_levels(boxes, len(maps), hw)
+    same_levels = torch.equal(level.cpu(), fpn_levels(torch.tensor(boxes_np), len(maps), hw))
+    got = multilevel_crop_rois(maps, boxes, 14, hw)
+    want = multilevel_crop_and_resize(maps, boxes, (14, 14), image_hw=hw)
+    own = all(torch.equal(got[level == i], crop_rois(m, boxes, 14)[level == i])
+              for i, m in enumerate(maps))
+    ratio = ((got.float() - want.float()).abs().max() / want.float().abs().max()).item()
+    used = torch.bincount(level.flatten(), minlength=len(maps)).tolist()
+    tag = f"{str(dtype)[6:]} B={b} K={k} {'/'.join(f'{s}²' for s in sides)} at {hw[0]}²"
+    txt = ""
+    if backward:
+        g = torch.tensor(rng.standard_normal(tuple(got.shape), dtype=np.float32), device=dev)
+        leaves = [m.detach().clone().requires_grad_() for m in maps]
+        before = crop_rois_backward.launches
+        (multilevel_crop_rois(leaves, boxes, 14, hw) * g).sum().backward()
+        n_bwd = crop_rois_backward.launches - before
+        plain = [m.detach().clone().requires_grad_() for m in maps]
+        (multilevel_crop_and_resize(plain, boxes, (14, 14), image_hw=hw) * g).sum().backward()
+        bwd = max(((a.grad - p.grad).abs().max() / p.grad.abs().max()).item()
+                  for a, p in zip(leaves, plain))
+        txt = (f"; backward, {n_bwd} K2 backward launches, max|kernel-plain| / max|plain| "
+               f"{bwd:.3e} (limit {BWD_TOL[dtype]})")
+        if n_bwd != len(maps) or not bwd <= BWD_TOL[dtype]:
+            raise AssertionError(f"the multi-level crop's backward disagrees ({tag})")
+    log(f"[fpn] multi-level crop {tag}: ROIs a level {used}, levels card = CPU {same_levels}, "
+        f"each ROI its level's K2 crop {own}, max|kernel-plain| / max|plain| {ratio:.3e} "
+        f"(limit {CROP_TOL[dtype]}){txt}")
+    if not (same_levels and own and ratio <= CROP_TOL[dtype]):
+        raise AssertionError(f"the multi-level crop disagrees with its plain twin ({tag})")
+
+
+def fpn_plain_branch(head):
+    """The mask branch with the plain multi-level crop in place of K2."""
+    return lambda rois, pyramid: head.from_crops(multilevel_crop_and_resize(
+        tuple(pyramid), rois.float(), (head.pool_size, head.pool_size),
+        image_hw=head.image_hw).to(head.dtype))
+
+
+def expect_launches(counts, what, want):
+    got = {name: counts[name][-1] for name in KERNELS}
+    if got != want:
+        raise AssertionError(f"{what} launched {got}, expected {want}")
+    return got
+
+
+def phase_fpn(dev, smi, rng, new_crop, workdir, counts):
+    """F1: K2 at the pyramid's shapes and the multi-level crop on the card;
+    detect, int8 hybrid, train and export through the FPN network. counts:
+    {path: {kernel: launches of each run}}, filled. Returns the JSON
+    results."""
+    fwd = phase_kernel(dev, rng, new_crop, shapes=FPN_FWD_SHAPES, edges=False)
+    bwd = phase_train_kernel(dev, rng, new_crop, torch.float32, shapes=FPN_BWD_SHAPES,
+                             edges=False)
+    check_multilevel(dev, rng, torch.bfloat16, FPN_BATCH, 48, (52, 26, 13), (416, 416), False)
+    check_multilevel(dev, rng, torch.float32, FPN_BATCH, 32, (28, 14, 7), (224, 224), True)
+    result = {"kernels": {"forward": fwd, "backward": dict(zip(FPN_LEVELS, bwd))}}
+
+    # (b) detect at 416²
+    cfg = Coco416FpnConfig()
+    h, w = cfg.IMAGE_SHAPE[:2]
+    t0 = time.perf_counter()
+    images_np = dense_images(FPN_BATCH + FPN_CALIB, SEED + 9, h)
+    images = torch.as_tensor(images_np[:FPN_BATCH], device=dev)
+    calib = images_np[FPN_BATCH:]
+    model = MaskYOLO("inference", cfg, seed=SEED, device=dev)
+    log(f"[fpn] {len(images_np)} DenseShapes scenes at {h}² and the ResNet-50 + FPN model "
+        f"({sum(p.numel() for p in model.net.parameters()) / 1e6:.2f} M parameters, bf16) in "
+        f"{time.perf_counter() - t0:.1f} s")
+    out = run_main_path(lambda: model.detect_batch(images), counts.setdefault("fpn_detect", {}))
+    check_outputs(out, cfg, FPN_BATCH, "FPN bf16")
+    launched = expect_launches(counts["fpn_detect"], "the FPN detect", FPN_LAUNCHES)
+    kp = cfg.MASK_TOP_K
+    scale = torch.tensor([w, h, w, h], device=dev)
+    with torch.inference_mode():
+        x = images_f32(images)
+        grid, pyramid = model.net.trunk_pyramid(x)
+        head = model.net.mask
+        out_k = detect_from_callables(lambda _: (grid, pyramid), model.net.mask_branch, x, cfg)
+        out_p = detect_from_callables(lambda _: (grid, pyramid), fpn_plain_branch(head), x, cfg)
+        rois = (out["boxes"][:, :kp] / scale).contiguous()
+        ms = cuda_ms(lambda: model.detect_batch(images), 5, 2)
+        trunk_ms = cuda_ms(lambda: model.net.trunk_pyramid(x), 5, 2)
+        crops = multilevel_crop_rois(pyramid, rois, head.pool_size, head.image_hw)
+        crop_ms = cuda_ms(lambda: multilevel_crop_rois(pyramid, rois, head.pool_size,
+                                                       head.image_hw), 20, 3)
+        conv_ms = cuda_ms(lambda: head.from_crops(crops.to(head.dtype)), 5, 2)
+    for key in ("boxes", "classes", "scores", "valid"):
+        if not torch.equal(out_k[key], out_p[key]):
+            raise AssertionError(f"FPN detect: {key} differ between K2 and the plain crop")
+    agree = (out_k["masks"] == out_p["masks"]).float().mean().item()
+    levels = torch.bincount(fpn_levels(rois, 3, (h, w)).flatten(), minlength=3).tolist()
+    rest = ms - trunk_ms - crop_ms - conv_ms
+    log(f"[fpn] bf16 detect_batch B={FPN_BATCH}: {int(out['valid'].sum())} valid detections, "
+        f"{int(out['masks'].sum())} mask pixels; launches {launched}; the batch's "
+        f"{FPN_BATCH * kp} ROIs by level {levels}; K2 vs the plain multi-level crop: boxes, "
+        f"classes, scores, valid identical, masks agree on {agree:.6f} of pixels (limit "
+        f"{MASK_AGREE}); {ms:.3f} ms/batch ({FPN_BATCH * 1e3 / ms:.1f} img/s) = trunk "
+        f"{trunk_ms:.3f} + 3 K2 crops {crop_ms:.3f} + mask convs {conv_ms:.3f} + the rest "
+        f"~{rest:.3f} ms on {smi} (recorded, not claimed)")
+    if agree < MASK_AGREE:
+        raise AssertionError("FPN detect: masks disagree between K2 and the plain crop")
+    result["detect"] = {"ms": ms, "trunk_ms": trunk_ms, "crops_ms": crop_ms,
+                        "mask_convs_ms": conv_ms, "rest_ms": rest, "mask_agree": agree,
+                        "rois_by_level": levels}
+
+    # (e) export: the bf16 artifact with a symbolic batch, in a child process
+    t0 = time.perf_counter()
+    model.export_model(workdir / "fpn.pt2")
+    export_s = time.perf_counter() - t0
+    np.save(workdir / "fpn_images.npy", images_np[:FPN_BATCH])
+    live = {b: host(model.detect_batch(images_np[:b])) for b in FPN_EXPORT_BATCHES}
+    child = run_children("export_fpn", 1, workdir)[0]
+    outputs = np.load(workdir / "fpn_out.npz")
+    counts["fpn_export"] = {name: [c[name] for c in child["per_call"]] for name in KERNELS}
+    if any(c != FPN_LAUNCHES for c in child["per_call"]) \
+            or child["graph_ops"] != {"crop_rois": 3}:
+        raise AssertionError(f"the FPN artifact launched {child['per_call']}, graph "
+                             f"{child['graph_ops']}; expected 3 crop_rois a call")
+    for b in FPN_EXPORT_BATCHES:
+        got = {k[len(f"{b}."):]: outputs[k] for k in outputs.files if k.startswith(f"{b}.")}
+        if not all(np.array_equal(got[k], live[b][k]) for k in live[b]):
+            raise AssertionError(f"the FPN artifact at batch {b} is not bit-equal to the live "
+                                 f"detect_batch")
+    log(f"[fpn] export_model (symbolic batch) {export_s:.1f} s, "
+        f"{(workdir / 'fpn.pt2').stat().st_size / 2**20:.1f} MiB; child load "
+        f"{child['load_s']:.1f} s, graph custom ops {child['graph_ops']}, launches a call "
+        f"{child['per_call'][0]}; at batch {', '.join(map(str, FPN_EXPORT_BATCHES))} bit-equal "
+        f"to the live detect_batch")
+    result["export"] = {"export_s": export_s, "load_s": child["load_s"],
+                        "graph_ops": child["graph_ops"]}
+
+    # (c) the int8 hybrid: the float trunk, the int8 mask head (K2, no K1 or K3)
+    fused = type("Coco416FpnFusedConfig", (Coco416FpnConfig,), {"QUANT_FUSED_MASK": True})()
+    try:
+        quant.QuantizedDetector.from_variables(
+            weights.to_jax_variables(model._host_state), fused, calib, device=dev, net=model.net)
+    except ValueError as e:
+        refused = str(e).split(":")[0]
+    else:
+        raise AssertionError("QUANT_FUSED_MASK on the FPN network did not raise")
+    t0 = time.perf_counter()
+    det = model.quantize(calib)
+    torch.cuda.synchronize()
+    quant_s = time.perf_counter() - t0
+    out8 = run_main_path(lambda: model.detect_batch(images), counts.setdefault("fpn_int8", {}))
+    check_outputs(out8, cfg, FPN_BATCH, "FPN int8 hybrid")
+    expect_launches(counts["fpn_int8"], "the FPN int8 hybrid detect", FPN_LAUNCHES)
+    score_err = (out8["scores"] - out["scores"]).abs().max().item()
+    with torch.inference_mode():
+        he = (det.mask_branch(rois, pyramid) - model.net.mask_branch(rois, pyramid)).abs()
+        ms8 = cuda_ms(lambda: model.detect_batch(images), 5, 2)
+    del model, det, pyramid, grid, crops
+    torch.cuda.empty_cache()
+    # the JAX test's setting: flax's default initializers, quantized on the
+    # same images, on the same ROIs
+    flat = MaskYOLO("inference", cfg, seed=SEED, device=dev)
+    flat.net.init_flax_defaults(torch.Generator().manual_seed(SEED))
+    flat._sync_host_state()
+    flat_det = flat.quantize(calib)
+    with torch.inference_mode():
+        pyramid = flat.net.trunk_pyramid(x)[1]
+        d = (flat_det.mask_branch(rois, pyramid) - flat.net.mask_branch(rois, pyramid)).abs()
+    log(f"[fpn] int8 hybrid: quantize ({FPN_CALIB} images) {quant_s:.1f} s; QUANT_FUSED_MASK "
+        f"refused ({refused}); launches {FPN_LAUNCHES}; classes equal to the float detect's "
+        f"{torch.equal(out8['classes'], out['classes'])}, scores max|d| {score_err:.3e} (limit "
+        f"{FPN_SCORE_TOL}); int8 vs float mask probabilities on the batch's "
+        f"{FPN_BATCH * kp} ROIs, flax's initializers: max {d.max().item():.4f} (limit "
+        f"{FPN_MASK_MAX}), mean {d.mean().item():.5f} (limit {FPN_MASK_MEAN}); He-normal "
+        f"(recorded): max {he.max().item():.4f}, mean {he.mean().item():.5f}; {ms8:.3f} "
+        f"ms/batch on {smi} (recorded, not claimed)")
+    if not (torch.equal(out8["classes"], out["classes"]) and score_err <= FPN_SCORE_TOL
+            and d.max().item() <= FPN_MASK_MAX and d.mean().item() <= FPN_MASK_MEAN):
+        raise AssertionError("the FPN int8 hybrid disagrees with the float path")
+    result["int8"] = {"ms": ms8, "quantize_s": quant_s, "score_err": score_err,
+                      "mask_max": d.max().item(), "mask_mean": d.mean().item(),
+                      "he_normal_mask_max": he.max().item(),
+                      "he_normal_mask_mean": he.mean().item()}
+    del flat, flat_det, pyramid, x, he, d
+    torch.cuda.empty_cache()
+
+    # (d) two f32 train steps at 224²
+    tcfg = TrainFpnConfig()
+    ds = shapes_dataset(FPN_BATCH, SEED, tcfg)
+    batch = to_device(BatchGenerator(preload_dataset(ds, tcfg), tcfg, shuffle=False)[0], dev)
+    tmodel = MaskYOLO("training", tcfg, seed=SEED, device=dev)
+    tx = record_first_update(train_state.make_optimizer(1e-3, tcfg,
+                                                        dict(tmodel.net.named_parameters())))
+    state = train_state.create_train_state(tmodel.net, tx)
+    step = trainer.make_train_step(tcfg, tx)
+    losses = []
+    for _ in range(FPN_TRAIN_STEPS):
+        _, metrics = run_main_path(lambda: step(state, batch),
+                                   counts.setdefault("fpn_train", {}),
+                                   ("crop_rois", "crop_rois_backward"))
+        losses.append(metrics["loss"].item())
+        expect_launches(counts["fpn_train"], "the FPN train step",
+                        {**FPN_LAUNCHES, "crop_rois_backward": 3})
+    # record_first_update keeps the gradients that exist: the neck's is None
+    neck = [k for k in tx.keys if k.startswith("feature_map.")]
+    neck_ok = len(neck) == 2 and all(k not in tx.seen or not tx.seen[k].any() for k in neck)
+    torch.cuda.reset_peak_memory_stats()
+    step_ms = cuda_ms(lambda: step(state, batch), 5, 2)
+    peak = torch.cuda.max_memory_allocated() / 2**20
+    log(f"[fpn] train step, batch {tcfg.BATCH_SIZE}, {tcfg.IMAGE_SHAPE[0]}², f32: losses "
+        f"{[round(v, 4) for v in losses]}, K2 forward and backward 3 + 3 a step; the neck's "
+        f"gradient None or zero {neck_ok}; {step_ms:.3f} ms/step, peak {peak:.0f} MiB on {smi} "
+        f"(recorded, not claimed)")
+    if not (np.isfinite(losses).all() and neck_ok):
+        raise AssertionError("the FPN train step failed (loss or the neck's gradient)")
+    result["train"] = {"step_ms": step_ms, "peak_mib": peak, "losses": losses}
+    return result
+
+
+def child_export_fpn(dev, workdir):
+    """F1(e)'s child: loads the FPN artifact with nothing but the export
+    module and runs it at FPN_EXPORT_BATCHES."""
+    from mask_yolo_tpu_torch.export import ExportedDetector, custom_op_counts
+
+    images = np.load(workdir / "fpn_images.npy")
+    t0 = time.perf_counter()
+    det = ExportedDetector.load(workdir / "fpn.pt2")
+    load_s = time.perf_counter() - t0
+    per_call, outputs = [], {}
+    for b in FPN_EXPORT_BATCHES:
+        for k in KERNELS.values():
+            k.launches = 0
+        out = det.detect_batch(images[:b])
+        torch.cuda.synchronize()
+        per_call.append({name: k.launches for name, k in KERNELS.items()})
+        outputs.update({f"{b}.{k}": v for k, v in host(out).items()})
+    np.savez(workdir / "fpn_out.npz", **outputs)
+    return {"load_s": load_s, "graph_ops": custom_op_counts(det.program), "per_call": per_call}
+
+
+CHILDREN = {"export": child_export, "export_fpn": child_export_fpn, "nccl": child_nccl,
             "dp": lambda dev, workdir: child_mesh("dp", dev, workdir),
             "tp": lambda dev, workdir: child_mesh("tp", dev, workdir)}
 
@@ -2385,7 +2713,8 @@ def main() -> int:
                     help="instead of the phases: train Shapes for 40 epochs on 400 images "
                          "in f32 and in bf16 and print held-out box and mask AP")
     ap.add_argument("--child", nargs=2, metavar=("KIND", "DIR"), default=None,
-                    help="internal: one process of phase X1 or P1 (export, nccl, dp, tp)")
+                    help="internal: one process of phase X1, P1 or F1 (export, nccl, dp, tp, "
+                         "export_fpn)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this check runs only on a GPU", file=sys.stderr)
@@ -2476,6 +2805,15 @@ def main() -> int:
     phase_infer_yolo(dev, rng, smi, cfg, cfg8, infer_counts)
     coco_counts = {}
     coco = phase_coco416(dev, smi, coco_counts)
+    fpn_dir = workdir.parent / "chip_smoke_fpn"
+    shutil.rmtree(fpn_dir, ignore_errors=True)
+    fpn_dir.mkdir(parents=True)
+    fpn_counts = {}
+    try:
+        fpn = phase_fpn(dev, smi, rng, new_crop, fpn_dir, fpn_counts)
+    finally:
+        shutil.rmtree(fpn_dir, ignore_errors=True)
+    torch.cuda.empty_cache()
 
     train_counts, train16_counts, data_counts = {}, {}, {}
     try:
@@ -2517,6 +2855,24 @@ def main() -> int:
                            by_path, head["max_abs_err"], head["ms"], head["plain_ms"],
                            (head["bound_ms"], head["bound_by"]), **keys(head), shapes=rest)
 
+    def fpn_line(name, r, kernel, paths):
+        """A row of K2 at one level of the pyramid: launches are the
+        path's count of the wrapper over its 3 levels, a call launching each
+        level once."""
+        by_path = {path: sum(fpn_counts[path][kernel]) // 3 for path in paths}
+        return kernel_line(name, "crop_rois.cu", "mask_yolo_tpu/ops/pallas_crop.py:92",
+                           by_path, r["max_abs_err"], r["ms"], r["plain_ms"],
+                           (r["bound_ms"], r["bound_by"]), library_ms=r["library_ms"],
+                           at=r["at"], **({"cold_ms": r["cold_ms"]} if "cold_ms" in r else {}))
+
+    fpn_rows = [fpn_line(f"crop_rois, FPN {tag[3:6]}² {tag[-2:]}", r, "crop_rois",
+                         ("fpn_detect", "fpn_export", "fpn_int8") if tag.startswith("fpn416")
+                         else ("fpn_train",))
+                for tag, r in fpn["kernels"]["forward"].items()]
+    fpn_rows += [fpn_line(f"crop_rois_backward, FPN 224² {lv}", r, "crop_rois_backward",
+                          ("fpn_train",)) for lv, r in fpn["kernels"]["backward"].items()]
+    print(json.dumps({"fpn": {key: fpn[key] for key in ("detect", "int8", "train", "export")},
+                      "device": smi}))
     print(json.dumps({"export_parallel": {
         "export": {tag: {k: v for k, v in r.items() if k != "per_call"}
                    for tag, r in exported.items()},
@@ -2549,7 +2905,8 @@ def main() -> int:
                     (k3_vector["bound_ms"], k3_vector["bound_by"]),
                     at="B=16, K=10, 28x28x256, per-channel scales + bias_corr",
                     gemm_core_ms=k3_vector["gemm_core_ms"], coco416=b128(k3_vector["416"]),
-                    detect_batch_416_ms={tag: r["ms"] for tag, r in coco.items()})]}))
+                    detect_batch_416_ms={tag: r["ms"] for tag, r in coco.items()}),
+        *fpn_rows]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

@@ -65,7 +65,9 @@ class Config:
     TOP_FEATURE_MAP_DEPTH = 256
     SECOND_PHASE_YOLO_DEPTH = 512
 
-    # FPN settings (used when BACKBONE == "resnet50_fpn")
+    # FPN settings. FPN_PYRAMID_SIZE is kept for the JAX package's config
+    # surface and read by neither package: the pyramid (P3, P4, P5) is
+    # TOP_FEATURE_MAP_DEPTH wide (models/network.py)
     FPN_PYRAMID_SIZE = 256
 
     # Mini-mask (reference: config.py:122-123)

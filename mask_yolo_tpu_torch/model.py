@@ -117,6 +117,7 @@ class MaskYOLO:
                 backbone=config.BACKBONE,
                 compute_dtype=compute_dtype,
                 param_dtype=param_dtype,
+                image_hw=(h, w),
             )
 
         # draw the seeded weights in f32, keep them, then load them into the
@@ -432,7 +433,9 @@ class MaskYOLO:
         K1; QUANT_FUSED_MASK: K3). finetune_steps > 0 then runs the
         label-free quantization-aware fine-tuning
         (QuantizedDetector.finetune) on calib_images at finetune_lr. A later
-        load_jax_variables, load_weights or train drops the int8 detector."""
+        load_jax_variables, load_weights or train drops the int8 detector.
+        With BACKBONE "resnet50_fpn" the detector is hybrid: this model's
+        float network runs the trunk, the mask head runs int8."""
         calib = calib_images
         if not torch.is_tensor(calib):
             calib = torch.from_numpy(np.ascontiguousarray(calib))
@@ -441,9 +444,10 @@ class MaskYOLO:
             calib = calib.float() / 255.0
         if self._host_state is None:
             self._sync_host_state()
+        self.net.eval()
         qdet = QuantizedDetector.from_variables(
             weights.to_jax_variables(self._host_state), self.config, calib,
-            device=self.device)
+            device=self.device, net=self.net)
         if finetune_steps:
             qdet.finetune(calib, steps=finetune_steps, lr=finetune_lr)
         self._qdet = qdet
@@ -466,7 +470,8 @@ class MaskYOLO:
                 detect(torch.zeros((1, h, w, c), dtype=torch.uint8, device=self.device))
             program, header = export_lib.export_detect_fn(
                 detect, self.config, batch_size=batch_size, input_dtype=input_dtype,
-                platforms=platforms, compute_path="int8", device=self.device)
+                platforms=platforms, compute_path="int8", device=self.device,
+                net=self._qdet.float_net)
         else:
             self.net.eval()
             program, header = export_lib.export_detect(

@@ -5,7 +5,12 @@ to per-class logits → sigmoid. The (batch, roi) axes are folded into one
 leading dim so each layer is one batched convolution.
 
 The crop goes through `ops.roi_crop.crop_rois`: the hand-written CUDA kernel
-on GPU tensors, its plain PyTorch twin on CPU tensors.
+on GPU tensors, its plain PyTorch twin on CPU tensors. Given the FPN
+pyramid (P3, P4, P5) instead of one map, each ROI is pooled from its level
+(`ops.roi_crop.multilevel_crop_rois`, one kernel call a level), with P4 as
+FPN's k0 (`roi_align.CANONICAL_LEVEL`) and the network's `image_hw` for
+the ROIs' pixel sizes; the crops, in the pyramid's dtype, are then cast to
+the compute dtype.
 """
 
 from __future__ import annotations
@@ -13,7 +18,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from ..ops.roi_crop import crop_rois
+from ..ops.roi_crop import crop_rois, multilevel_crop_rois
 from .layers import ConvTranspose2d, SameConv2d, batch_norm, gathered
 
 CONV_FEATURES = 256
@@ -21,9 +26,10 @@ CONV_FEATURES = 256
 
 class MaskHead(nn.Module):
     def __init__(self, cin, num_classes, pool_size=14, dtype=torch.float32,
-                 param_dtype=None):
+                 param_dtype=None, image_hw=(224, 224)):
         super().__init__()
         self.num_classes, self.pool_size, self.dtype = num_classes, pool_size, dtype
+        self.image_hw = tuple(image_hw)
         for i in range(1, 5):
             self.add_module(f"mask_conv{i}", SameConv2d(
                 cin if i == 1 else CONV_FEATURES, CONV_FEATURES, 3, dtype=dtype,
@@ -36,13 +42,14 @@ class MaskHead(nn.Module):
 
     def forward(self, rois, feature_map):
         """rois: [B, R, 4] normalized (x1, y1, x2, y2); feature_map:
-        [B, h, w, C] → [B, R, 2·pool, 2·pool, num_classes] sigmoid masks."""
+        [B, h, w, C], or the FPN pyramid's maps fine to coarse →
+        [B, R, 2·pool, 2·pool, num_classes] sigmoid masks."""
+        rois = rois.float().contiguous()
         if isinstance(feature_map, (tuple, list)):
-            raise NotImplementedError(
-                "multi-level (FPN) ROIAlign is not ported yet "
-                "(ROADMAP Queue 1, ResNet-50 + FPN)")
-        crops = crop_rois(feature_map.to(self.dtype).contiguous(),
-                          rois.float().contiguous(), self.pool_size)
+            crops = multilevel_crop_rois(feature_map, rois, self.pool_size,
+                                         self.image_hw).to(self.dtype)
+        else:
+            crops = crop_rois(feature_map.to(self.dtype).contiguous(), rois, self.pool_size)
         return self.from_crops(crops)
 
     def from_crops(self, crops):

@@ -5,6 +5,12 @@
     grid = yolo_head(C4)                         # [B, gh, gw, nb, 5+C]
     masks = mask_head(rois, fmap)                # [B, R, 28, 28, C]
 
+The ResNet-50 + FPN backbone (`backbone="resnet50_fpn"`) keeps that
+contract for the YOLO head, and its (P3, P4, P5) pyramid, as wide as the
+neck (`top_feature_map_depth`), feeds the mask branch through multi-level
+ROIAlign instead of the neck (`trunk_pyramid`, `pick_trunk`); the neck still
+exists on that network, but no FPN path reads it.
+
 Submodule names equal the flax module names, so a flax variable path maps to
 a torch state_dict key by joining with dots (`weights.from_jax_variables`).
 """
@@ -19,6 +25,7 @@ from torch import nn
 from .layers import SameConv2d, gathered
 from .mask_head import MaskHead
 from .mobilenet import MobileNetBackbone
+from .resnet_fpn import ResNetFPNBackbone
 from .yolo_head import YoloHead
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -27,28 +34,30 @@ DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 class MaskYoloNet(nn.Module):
     def __init__(self, num_classes, n_box, top_feature_map_depth=256,
                  mask_pool_size=14, backbone="mobilenet",
-                 compute_dtype="float32", param_dtype=None):
+                 compute_dtype="float32", param_dtype=None, image_hw=(224, 224)):
         """param_dtype: the dtype the conv parameters are held in (default:
         the compute dtype). "float32" with a bfloat16 compute dtype gives
         the training network: f32 masters cast at each use, as flax keeps
-        them (models/layers.py)."""
+        them (models/layers.py). image_hw: the input's pixel size, which
+        the FPN mask branch's level assignment reads."""
         super().__init__()
-        if backbone == "resnet50_fpn":
-            raise NotImplementedError(
-                "the resnet50_fpn backbone is not ported yet "
-                "(ROADMAP Queue 1, ResNet-50 + FPN)")
-        if backbone != "mobilenet":
-            raise ValueError(f"unknown backbone {backbone!r}")
         dt = DTYPES[compute_dtype]
         pdt = DTYPES[param_dtype or compute_dtype]
-        self.backbone = MobileNetBackbone(dtype=dt, param_dtype=pdt)
+        self.backbone_name = backbone
+        if backbone == "mobilenet":
+            self.backbone = MobileNetBackbone(dtype=dt, param_dtype=pdt)
+        elif backbone == "resnet50_fpn":
+            self.backbone = ResNetFPNBackbone(pyramid_size=top_feature_map_depth, dtype=dt,
+                                              param_dtype=pdt)
+        else:
+            raise ValueError(f"unknown backbone {backbone!r}")
         c4 = self.backbone.out_channels
         # neck: reduce depth for the mask branch only
         self.feature_map = SameConv2d(c4, top_feature_map_depth, 3, dtype=dt,
                                       param_dtype=pdt)
         self.yolo = YoloHead(c4, n_box, num_classes, dtype=dt, param_dtype=pdt)
         self.mask = MaskHead(top_feature_map_depth, num_classes, mask_pool_size,
-                             dtype=dt, param_dtype=pdt)
+                             dtype=dt, param_dtype=pdt, image_hw=image_hw)
 
     @torch.no_grad()
     def reset_parameters(self, generator: torch.Generator):
@@ -95,11 +104,30 @@ class MaskYoloNet(nn.Module):
     def trunk(self, image):
         """image [B, H, W, 3] float in [0, 1] → (grid [B, gh, gw, nb, 5+C]
         float32, fmap [B, h, w, C] in the compute dtype)."""
-        x = image.permute(0, 3, 1, 2).contiguous(memory_format=torch.channels_last)
-        c4 = self.backbone(x)
+        c4 = self.backbone(_nchw(image))
         fmap = gathered(self.feature_map, self.feature_map(c4))
         return self.yolo(c4), fmap.permute(0, 2, 3, 1)
 
+    def trunk_pyramid(self, image):
+        """The FPN network's trunk: image → (grid, (P3, P4, P5) [B, h, w, C]
+        in the compute dtype, fine to coarse), the pyramid that the mask
+        branch pools each ROI from by its level."""
+        if self.backbone_name != "resnet50_fpn":
+            raise ValueError("trunk_pyramid requires the resnet50_fpn backbone")
+        c4, pyramid = self.backbone(_nchw(image), return_pyramid=True)
+        return self.yolo(c4), tuple(p.permute(0, 2, 3, 1) for p in pyramid)
+
+    def pick_trunk(self):
+        """The trunk the training and detect paths use: `trunk_pyramid` on
+        the FPN network, `trunk` (the neck's single map) otherwise."""
+        return self.trunk_pyramid if self.backbone_name == "resnet50_fpn" else self.trunk
+
     def mask_branch(self, rois, fmap):
-        """rois [B, R, 4] normalized → [B, R, 28, 28, C] sigmoid masks."""
+        """rois [B, R, 4] normalized, fmap one map or the pyramid →
+        [B, R, 28, 28, C] sigmoid masks."""
         return self.mask(rois, fmap)
+
+
+def _nchw(image):
+    """[B, H, W, 3] → the NCHW channels_last view the backbones take."""
+    return image.permute(0, 3, 1, 2).contiguous(memory_format=torch.channels_last)

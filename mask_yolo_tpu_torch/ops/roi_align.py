@@ -15,6 +15,10 @@ working dtype at the same points as the JAX version.
 (the gradient with respect to the feature map; boxes get none, as in JAX),
 and `crop_and_resize_per_roi` the single-channel f32 crop that target
 assignment uses on ground-truth masks.
+
+`multilevel_crop_and_resize` is multi-level (FPN) ROIAlign: each ROI is
+cropped from the pyramid level that `fpn_levels` assigns it (FPN eq. 1).
+Its card form, one K2 launch a level, is `ops/roi_crop.multilevel_crop_rois`.
 """
 
 from __future__ import annotations
@@ -89,6 +93,45 @@ def crop_and_resize_per_roi(images, boxes, crop_size):
     wx = interp_matrix(x1, x2, w, pw)                  # [R, pw, W]
     tmp = torch.bmm(wy, images.float())                # [R, ph, W]
     return torch.bmm(tmp, wx.transpose(1, 2))
+
+
+# FPN eq. 1: an ROI of CANONICAL_SCALE pixels (whatever the image size) goes
+# to pyramid index CANONICAL_LEVEL, FPN's k0 = 4 (P4) in (P3, P4, P5)
+CANONICAL_SCALE, CANONICAL_LEVEL = 224.0, 1
+
+
+def fpn_levels(boxes, n_levels: int, image_hw):
+    """The pyramid level of each ROI (FPN eq. 1): boxes [..., 4] normalized
+    (x1, y1, x2, y2) → int64 [...] in [0, n_levels - 1], fine to coarse:
+    CANONICAL_LEVEL + round(log2(sqrt(bw·bh) / CANONICAL_SCALE)), each ×2 in
+    scale one level coarser, with bw, bh = max(side, 1e-8) × the image's
+    pixel size, in f32. torch.round rounds half to even, as jnp.round does."""
+    h_px, w_px = image_hw
+    boxes = boxes.float()
+    bw = torch.clamp(boxes[..., 2] - boxes[..., 0], min=1e-8) * w_px
+    bh = torch.clamp(boxes[..., 3] - boxes[..., 1], min=1e-8) * h_px
+    level = CANONICAL_LEVEL + torch.round(torch.log2(torch.sqrt(bw * bh) / CANONICAL_SCALE))
+    return torch.clamp(level, 0, n_levels - 1).long()
+
+
+def select_levels(crops, level):
+    """Each ROI's crop from its level: crops, one [B, R, ph, pw, C] a level,
+    level [B, R] → [B, R, ph, pw, C]. An exact select, so the values and the
+    gradients (zero for the levels not taken) are those of the JAX package's
+    one-hot contraction."""
+    out = crops[0]
+    for i in range(1, len(crops)):
+        out = torch.where((level == i)[..., None, None, None], crops[i], out)
+    return out
+
+
+def multilevel_crop_and_resize(features, boxes, crop_size, image_hw=(224, 224)):
+    """Multi-level (FPN) ROIAlign, the plain version: features, the pyramid
+    maps fine to coarse, each [B, Hi, Wi, C]; boxes [B, R, 4] normalized.
+    Every level is cropped (in its own dtype) on all R boxes and each ROI
+    takes the crop of its level (`fpn_levels`). Returns [B, R, ph, pw, C]."""
+    level = fpn_levels(boxes, len(features), image_hw)
+    return select_levels([crop_and_resize(f, boxes, crop_size) for f in features], level)
 
 
 def paste_masks(masks, boxes, image_size, dtype=torch.float32):

@@ -43,7 +43,8 @@ import functools
 import torch
 
 from . import _build
-from .roi_align import crop_and_resize, crop_and_resize_backward, interp_matrix
+from .roi_align import (crop_and_resize, crop_and_resize_backward, fpn_levels,
+                        interp_matrix, select_levels)
 
 _SYMBOLS = {torch.float32: "crop_rois_f32", torch.bfloat16: "crop_rois_bf16"}
 _BWD_SYMBOLS = {torch.float32: "crop_rois_backward_f32",
@@ -155,6 +156,21 @@ def crop_rois(fmap, boxes, pool: int):
         raise ValueError(f"pool must be >= 1, got {pool}")
     _check("fmap", fmap, boxes)
     return torch.ops.mask_yolo_tpu_torch.crop_rois(fmap, boxes.detach(), pool)
+
+
+def multilevel_crop_rois(features, boxes, pool: int, image_hw):
+    """Multi-level (FPN) ROIAlign through the crop kernel: one `crop_rois`
+    call a level on all K boxes, then each ROI's crop from its level
+    (`roi_align.fpn_levels`, `select_levels`), the card's form of
+    `roi_align.multilevel_crop_and_resize`. Under autograd each level's
+    backward is one `crop_rois_backward` call, its gradient zero on the ROIs
+    of the other levels. Every call has K ROIs, so the shapes (and what
+    `torch.export` records) do not depend on the data. features: the
+    pyramid maps fine to coarse, each [B, Hi, Wi, C] float32 or bfloat16;
+    boxes [B, K, 4] float32. Returns [B, K, pool, pool, C] in the maps'
+    dtype."""
+    level = fpn_levels(boxes, len(features), image_hw)
+    return select_levels([crop_rois(f.contiguous(), boxes, pool) for f in features], level)
 
 
 def _scratch_bytes(b, h, w, k, pool):

@@ -9,6 +9,9 @@ assignment slots (positives first), runs the mask branch on them through the
 crop kernel, and sums the YOLO and mask losses with LOSS_WEIGHTS.
 `yolo_only_loss` is the trunk and the YOLO loss alone. Both set the
 network's BatchNorm mode: batch statistics iff `train` and TRAIN_BN.
+`training_loss` and `detect_outputs` run `net.pick_trunk()`, so an FPN
+network's mask branch reads its pyramid; `yolo_only_loss` and
+`infer_yolo_outputs` read only the grid, which both trunks give alike.
 
 Decode, zero-area filter, score top-K, index-order class NMS, the MASK_TOP_K
 valid-first re-sort, the mask branch on the surviving slots, the paste to
@@ -63,7 +66,7 @@ def training_loss(net, batch, config, seen, train: bool = True, group=None):
     Returns (loss, metrics) with metrics detached.
     """
     net.train(train and bool(config.TRAIN_BN))
-    grid, fmap = net.trunk(images_f32(batch["image"]))
+    grid, fmap = net.pick_trunk()(images_f32(batch["image"]))
 
     h, w = config.IMAGE_SHAPE[:2]
     proposals = decode_yolo_proposals(grid, config.anchors_wh, config.GRID_H,
@@ -168,7 +171,7 @@ def detect_outputs(net, images, config):
       masks   [B, K, H, W] bool full-size instance masks
       valid   [B, K] bool
     """
-    return detect_from_callables(net.trunk, net.mask_branch, images, config)
+    return detect_from_callables(net.pick_trunk(), net.mask_branch, images, config)
 
 
 def detect_from_callables(trunk, mask_branch, images, config,

@@ -41,6 +41,17 @@ How the port computes each layer, and why:
     package's `detect_outputs(use_pallas=True)`). The chained mask branch
     crops through K2 `ops/roi_crop.crop_rois`.
 
+Hybrid mode (a backbone other than MobileNet, i.e. "resnet50_fpn"): the
+graph holds the mask layers only ('trunk', 'neck' and 'yolo' are None), the
+float network's trunk (`float_trunk`, the model's own `MaskYoloNet` in eval
+mode, bf16 in a bf16 config) gives the grid and the (P3, P4, P5) pyramid,
+and the int8 mask head pools each ROI from its level: through K2 once a
+level on the int8 path (`roi_crop.multilevel_crop_rois`), through the plain
+`roi_align.multilevel_crop_and_resize` for calibration. K3 takes one map,
+so QUANT_FUSED_MASK with a pyramid is refused when the detector is built
+(the JAX package would hand the tuple to its kernel and fail inside it);
+QUANT_FUSED_DS has no int8 trunk to act on and is ignored, as in JAX.
+
 One deliberate difference: the JAX package's `_mask_layers` reads the
 deconv kernel unflipped, `W[di, dj]`, while flax's ConvTranspose computes
 `y[2i+di, 2j+dj] = Σ x[i, j]·W[1-di, 1-dj]`. The port flips it, so its
@@ -61,10 +72,8 @@ from . import pipelines
 from .ops.ds_block import fused_ds_block, pack_ds_pair
 from .ops.int8 import int_mm, quantize, scale_tensor
 from .ops.mask_fused import fused_mask_branch, pack_mask_weights, weights_to
-from .ops.roi_align import crop_and_resize
-from .ops.roi_crop import crop_rois
-
-_NOT_PORTED = "is not ported yet (ROADMAP Queue 1 item {})"
+from .ops.roi_align import crop_and_resize, multilevel_crop_and_resize
+from .ops.roi_crop import crop_rois, multilevel_crop_rois
 
 # ---------------------------------------------------------------------------
 # BN folding + layer graph
@@ -153,14 +162,15 @@ def _auto_at_320(config, name: str) -> bool:
 
 def build_layer_graph(variables, config):
     """The folded inference layer graph of a flax-layout f32 variable tree:
-    {'trunk' (stem + backbone), 'neck', 'yolo', 'mask': [Layer]}."""
-    if config.BACKBONE != "mobilenet":
-        raise NotImplementedError(
-            f"int8 BACKBONE={config.BACKBONE!r} (hybrid mode) "
-            + _NOT_PORTED.format(9))
+    {'trunk' (stem + backbone), 'neck', 'yolo', 'mask': [Layer]}. Only the
+    MobileNet trunk is quantized; for another backbone (hybrid mode)
+    'trunk', 'neck' and 'yolo' are None and only the mask layers are built."""
     mask_f32 = getattr(config, "QUANT_MASK_F32_LAYERS", ()) or ()
     params = variables["params"]
     stats = variables.get("batch_stats", {})
+    if config.BACKBONE != "mobilenet":
+        return {"trunk": None, "neck": None, "yolo": None,
+                "mask": _mask_layers(params["mask"], stats["mask"], f32_layers=mask_f32)}
     dw_int8 = _auto_at_320(config, "QUANT_DW_INT8")
     stem_bf16 = _auto_at_320(config, "QUANT_STEM_BF16")
 
@@ -438,19 +448,40 @@ def _trunk_outputs(graph, images, quant: bool, collect=None, fused_ds: bool = Fa
     return raw, fmap
 
 
-def _mask_outputs(graph, rois, fmap, pool_size: int, num_classes: int, quant: bool,
-                  collect=None, calib_pct: float = 100.0):
-    """[B, R, 2p, 2p, num_classes] sigmoid masks from one feature map. The
-    int8 path crops the bf16 fmap through K2; calibration crops in f32."""
+def _crop(fmap, rois, pool_size: int, image_hw, kernel: bool):
+    """The mask branch's crop of one map, or of the FPN pyramid (each ROI
+    from its level, each level cropped in its own dtype), through K2
+    (`kernel`) or its plain version, as f32 [B·R, p, p, C]."""
+    rois = rois.float().contiguous()
     if isinstance(fmap, (tuple, list)):
-        raise NotImplementedError("multi-level (FPN) ROIAlign " + _NOT_PORTED.format(9))
-    b, r = rois.shape[:2]
-    if quant and collect is None:
-        x = crop_rois(fmap.to(torch.bfloat16).contiguous(), rois.float().contiguous(),
-                      pool_size)
+        if kernel:
+            x = multilevel_crop_rois(fmap, rois, pool_size, image_hw)
+        else:
+            x = multilevel_crop_and_resize(tuple(fmap), rois, (pool_size, pool_size),
+                                           image_hw=image_hw)
+    elif kernel:
+        x = crop_rois(fmap.contiguous(), rois, pool_size)
     else:
-        x = crop_and_resize(fmap.float(), rois.float(), (pool_size, pool_size))
-    x = x.float().reshape(b * r, pool_size, pool_size, x.shape[-1])
+        x = crop_and_resize(fmap, rois, (pool_size, pool_size))
+    return x.float().reshape(-1, pool_size, pool_size, x.shape[-1])
+
+
+def _mask_outputs(graph, rois, fmap, pool_size: int, num_classes: int, quant: bool,
+                  collect=None, calib_pct: float = 100.0, image_hw=(224, 224)):
+    """[B, R, 2p, 2p, num_classes] sigmoid masks from one feature map or the
+    FPN pyramid (image_hw: the input's pixel size, for the ROIs' levels).
+    The int8 path crops the bf16 fmap through K2 (a pyramid in its own
+    dtype, then rounded to bf16, as the JAX package does); calibration crops
+    an f32 fmap, or the pyramid in its dtype, with the plain version."""
+    b, r = rois.shape[:2]
+    kernel = quant and collect is None
+    if isinstance(fmap, (tuple, list)):
+        x = _crop(fmap, rois, pool_size, image_hw, kernel)
+        if kernel:
+            x = x.to(torch.bfloat16).float()
+    else:
+        x = _crop(fmap.to(torch.bfloat16) if kernel else fmap.float(), rois, pool_size,
+                  image_hw, kernel)
     x = run_layers(graph["mask"], x, quant, collect, calib_pct=calib_pct)
     side = 2 * pool_size
     return x.reshape(b, r, side, side, num_classes)
@@ -468,11 +499,28 @@ def _default_rois(n: int):
     return np.tile(_CALIB_ROIS[None], (n, 1, 1))
 
 
+def _hybrid(graph) -> bool:
+    return graph["trunk"] is None
+
+
+def _trunk_fmap(graph, images, float_trunk, collect=None, calib_pct: float = 100.0):
+    """The mask branch's input for calibration and the quality tools: the
+    f32 graph's fmap, or in hybrid mode the float trunk's pyramid."""
+    if not _hybrid(graph):
+        return _trunk_outputs(graph, images, quant=False, collect=collect,
+                              calib_pct=calib_pct)[1]
+    if float_trunk is None:
+        raise ValueError("a hybrid-mode graph (no int8 trunk) needs float_trunk=")
+    return float_trunk(images)[1]
+
+
 @torch.inference_mode()
-def calibrate(graph, config, images, rois=None):
+def calibrate(graph, config, images, rois=None, float_trunk=None):
     """One f32 forward over calibration images (a float tensor [N, H, W, 3]
     in [0, 1]); sets each layer's a_scale. rois: [N, R, 4] normalized boxes
-    for the mask branch (default: four spread boxes).
+    for the mask branch (default: four spread boxes). float_trunk: in hybrid
+    mode, images → (grid, pyramid), the float network's trunk whose pyramid
+    feeds the mask layers.
 
     Per tensor (the default): absmax / 127, or with QUANT_CALIB_PCT < 100
     that percentile of |x| / 127, as a Python float. With
@@ -492,9 +540,10 @@ def calibrate(graph, config, images, rois=None):
         rois = _default_rois(images.shape[0])
     rois = torch.as_tensor(rois, device=images.device)
     collect = []
-    _, fmap = _trunk_outputs(graph, images, quant=False, collect=collect, calib_pct=pct)
+    fmap = _trunk_fmap(graph, images, float_trunk, collect, pct)
     _mask_outputs(graph, rois, fmap, config.MASK_POOL_SIZE, config.NUM_CLASSES,
-                  quant=False, collect=collect, calib_pct=pct)
+                  quant=False, collect=collect, calib_pct=pct,
+                  image_hw=tuple(config.IMAGE_SHAPE[:2]))
     stats = {name: np.asarray(v.cpu().numpy(), np.float32) for name, v in collect}
     alpha = float(getattr(config, "QUANT_SMOOTH_ALPHA", 0.5))
     for part in graph.values():
@@ -554,7 +603,7 @@ def _int8_layer(layer) -> bool:
 
 
 @torch.inference_mode()
-def bias_correct(graph, config, images, rois=None):
+def bias_correct(graph, config, images, rois=None, float_trunk=None):
     """Per-output-channel bias correction (Nagel et al. 2019, "Data-Free
     Quantization Through Weight Equalization and Bias Correction", §5), after
     quantize_weights. For every int8 layer the mean pre-activation error
@@ -562,7 +611,7 @@ def bias_correct(graph, config, images, rois=None):
     with x from the exact f32 forward (each layer is corrected on its own,
     errors do not compound), lands in layer.bias_corr, which the int8 path
     adds and the f32 path ignores. images: float tensor [N, H, W, 3] in
-    [0, 1]; rois as in calibrate."""
+    [0, 1]; rois and float_trunk as in calibrate."""
     if rois is None:
         rois = _default_rois(images.shape[0])
     rois = torch.as_tensor(rois, device=images.device).float()
@@ -581,12 +630,14 @@ def bias_correct(graph, config, images, rois=None):
             x = run_layer_f32(layer, x)
         return x
 
-    c4 = correct_chain(graph["trunk"], images)
-    fmap = correct_chain(graph["neck"], c4)
-    correct_chain(graph["yolo"], c4)
-    pool = config.MASK_POOL_SIZE
-    x = crop_and_resize(fmap.float(), rois, (pool, pool))
-    correct_chain(graph["mask"], x.reshape(-1, pool, pool, x.shape[-1]))
+    if _hybrid(graph):
+        fmap = _trunk_fmap(graph, images, float_trunk)
+    else:
+        c4 = correct_chain(graph["trunk"], images)
+        fmap = correct_chain(graph["neck"], c4).float()
+        correct_chain(graph["yolo"], c4)
+    correct_chain(graph["mask"], _crop(fmap, rois, config.MASK_POOL_SIZE,
+                                       tuple(config.IMAGE_SHAPE[:2]), kernel=False))
     return graph
 
 
@@ -649,31 +700,58 @@ def _nmse(x, t):
 
 class QuantizedDetector:
     """int8 detect pipeline with the outputs of pipelines.detect_outputs
-    (decode, NMS, top-K and paste stay f32)."""
+    (decode, NMS, top-K and paste stay f32).
 
-    def __init__(self, graph, config, device=None):
+    In hybrid mode (a graph without an int8 trunk) `float_net`, the float
+    `MaskYoloNet` of the same weights, runs the trunk (`pick_trunk`, the
+    pyramid for the FPN network) in eval mode, and only the mask head runs
+    int8. The detector holds the network itself, not a copy: a change to
+    its weights reaches the trunk (MaskYOLO drops the detector on any)."""
+
+    def __init__(self, graph, config, device=None, float_net=None):
+        if _hybrid(graph):
+            if float_net is None:
+                raise ValueError(f"BACKBONE={config.BACKBONE!r} quantizes in hybrid mode: "
+                                 f"pass net= so that the trunk runs in float")
+            if getattr(config, "QUANT_FUSED_MASK", False):
+                raise ValueError("QUANT_FUSED_MASK: the fused mask kernel (K3) takes one "
+                                 "feature map, and a hybrid-mode detector gives the mask "
+                                 "head the FPN pyramid; the int8 mask head runs as chained "
+                                 "layers (set QUANT_FUSED_MASK = False)")
         self.graph = graph
         self.config = config
         self.device = None if device is None else torch.device(device)
+        self.float_net = float_net if _hybrid(graph) else None
         self.finetune_result = None   # the last finetune's {"loss_initial", "loss_final"}
         self._mask_weights = {}   # device → (the arrays packed, K3's packed weights)
 
     @classmethod
-    def from_variables(cls, variables, config, calib_images, device="cuda"):
+    def from_variables(cls, variables, config, calib_images, device="cuda", net=None):
         """variables: a flax-layout f32 tree; calib_images: [N, H, W, 3]
         float in [0, 1] (numpy or tensor), calibrated on `device` (the card
-        unless the caller asks for the CPU)."""
+        unless the caller asks for the CPU). net: the `MaskYoloNet` of these
+        weights on `device`, required in hybrid mode (BACKBONE other than
+        "mobilenet"), whose trunk then stays float."""
         device = torch.device(device)
         if device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("device='cuda' requested but no CUDA device is available")
         graph = build_layer_graph(variables, config)
+        det = cls(graph, config, device=device, float_net=net)
         images = torch.as_tensor(np.asarray(calib_images, np.float32)
                                  if not torch.is_tensor(calib_images) else calib_images,
                                  device=device).float()
-        graph = quantize_weights(calibrate(graph, config, images))
+        graph = quantize_weights(calibrate(graph, config, images,
+                                           float_trunk=det.float_trunk))
         if bool(getattr(config, "QUANT_BIAS_CORRECT", False)):
-            graph = bias_correct(graph, config, images)
-        return cls(graph, config, device=device)
+            graph = bias_correct(graph, config, images, float_trunk=det.float_trunk)
+        return det
+
+    def float_trunk(self, images):
+        """Hybrid mode's trunk: images [B, H, W, 3] float in [0, 1] → (grid
+        f32, pyramid or fmap) of the float network in eval mode."""
+        self.float_net.eval()
+        grid, fmap = self.float_net.pick_trunk()(pipelines.images_f32(images))
+        return grid.float(), fmap
 
     def finetune(self, images, rois=None, steps: int = 200, lr: float = 1e-5, seed: int = 0):
         """Quantization-aware fine-tuning by distillation, without labels.
@@ -703,14 +781,18 @@ class QuantizedDetector:
         if rois is None:
             rois = _default_rois(images.shape[0])
         rois = torch.as_tensor(rois, device=dev).float().contiguous()
-        pool = cfg.MASK_POOL_SIZE
+        hybrid = _hybrid(graph)
+        hw = tuple(cfg.IMAGE_SHAPE[:2])
 
-        def crop(fmap):
-            x = crop_rois(fmap.float().contiguous(), rois, pool)
-            return x.reshape(-1, pool, pool, x.shape[-1])
+        def crop(fmap):   # K2 (once a pyramid level), in f32 or the pyramid's dtype
+            return _crop(fmap if hybrid else fmap.float(), rois, cfg.MASK_POOL_SIZE, hw,
+                         kernel=True)
 
         with torch.no_grad():
-            raw_t, fmap_t = _trunk_outputs(graph, images, quant=False)
+            if hybrid:
+                raw_t, fmap_t = None, self.float_trunk(images)[1]
+            else:
+                raw_t, fmap_t = _trunk_outputs(graph, images, quant=False)
             mask_t = run_layers(graph["mask"], crop(fmap_t), quant=False)
 
         tuned = [l for part in graph.values() for l in part or ()
@@ -731,11 +813,15 @@ class QuantizedDetector:
         mw = float(getattr(cfg, "QUANT_QAT_MASK_WEIGHT", 1.0) or 1.0)
 
         def loss_fn():
-            c4 = _run_layers_fq(graph["trunk"], images, params)
-            fmap = _run_layers_fq(graph["neck"], c4, params)
-            raw = _run_layers_fq(graph["yolo"], c4, params)
+            if hybrid:   # the trunk stays float: the teacher's pyramid
+                fmap, loss = fmap_t, 0.0
+            else:
+                c4 = _run_layers_fq(graph["trunk"], images, params)
+                fmap = _run_layers_fq(graph["neck"], c4, params)
+                raw = _run_layers_fq(graph["yolo"], c4, params)
+                loss = _nmse(raw, raw_t) + _nmse(fmap, fmap_t)
             mask = _run_layers_fq(graph["mask"], crop(fmap), params)
-            return _nmse(raw, raw_t) + _nmse(fmap, fmap_t) + mw * _nmse(mask, mask_t)
+            return loss + mw * _nmse(mask, mask_t)
 
         opt = torch.optim.Adam(leaves, lr=lr, betas=(0.9, 0.999), eps=1e-8, weight_decay=0.0)
         snapshot = lambda: [t.detach().clone() for t in leaves]   # noqa: E731
@@ -788,7 +874,10 @@ class QuantizedDetector:
 
     def trunk(self, images, quant: bool = True, fused_ds: bool | None = None):
         """images [B, H, W, 3] float in [0, 1] → (grid [B, gh, gw, nb, 5+C]
-        f32, fmap [B, h, w, C] f32)."""
+        f32, fmap [B, h, w, C] f32); in hybrid mode the float trunk's
+        (grid, pyramid), whatever quant and fused_ds say."""
+        if _hybrid(self.graph):
+            return self.float_trunk(images)
         if fused_ds is None:
             fused_ds = bool(getattr(self.config, "QUANT_FUSED_DS", False))
         raw, fmap = _trunk_outputs(self.graph, images, quant, fused_ds=fused_ds)
@@ -797,14 +886,19 @@ class QuantizedDetector:
         return raw.reshape(b, gh, gw, nb, raw.shape[-1] // nb).float(), fmap
 
     def mask_branch(self, rois, fmap, quant: bool = True):
-        """→ [B, R, 2p, 2p, NUM_CLASSES] sigmoid masks (chained layers)."""
+        """→ [B, R, 2p, 2p, NUM_CLASSES] sigmoid masks (chained layers), from
+        one map or the pyramid."""
         return _mask_outputs(self.graph, rois, fmap, self.config.MASK_POOL_SIZE,
-                             self.config.NUM_CLASSES, quant)
+                             self.config.NUM_CLASSES, quant,
+                             image_hw=tuple(self.config.IMAGE_SHAPE[:2]))
 
     def fused_mask(self, rois, fmap, classes):
         """K3: each ROI's class mask [B, R, 2p, 2p] from one kernel call. The
         packed weights are kept while the arrays they were packed from stay
         the mask layers' (bias_correct and finetune replace them)."""
+        if isinstance(fmap, (tuple, list)):
+            raise ValueError("the fused mask kernel (K3) takes one feature map, not the "
+                             "FPN pyramid")
         key = str(fmap.device)
         src = [a for l in self.graph["mask"] for a in (l.w_q, l.w_scale, l.bias_corr, l.a_scale)]
         hit = self._mask_weights.get(key)

@@ -121,3 +121,13 @@ EXPORT_PARALLEL_SLICE = ("export", "parallel.collectives", "parallel.mesh",
 @pytest.mark.parametrize("name", EXPORT_PARALLEL_SLICE)
 def test_export_parallel_module_is_covered(name):
     assert ROOT / "mask_yolo_tpu_torch" / (name.replace(".", "/") + ".py") in PORT_FILES
+
+
+# the ResNet-50 + FPN backbone, the last module of the JAX package to be
+# ported, covered the same way
+FPN_SLICE = ("models.resnet_fpn", "models.network", "ops.roi_align", "ops.roi_crop")
+
+
+@pytest.mark.parametrize("name", FPN_SLICE)
+def test_fpn_module_is_covered(name):
+    assert ROOT / "mask_yolo_tpu_torch" / (name.replace(".", "/") + ".py") in PORT_FILES

@@ -101,7 +101,7 @@ def recording(tx):
     apply = tx.apply
 
     def record(params, grads, opt_state):
-        tx.seen = {k: g.detach().clone() for k, g in grads.items()}
+        tx.seen = {k: None if g is None else g.detach().clone() for k, g in grads.items()}
         apply(params, grads, opt_state)
 
     tx.apply = record
@@ -129,17 +129,20 @@ def wide_shapes(net):
 # ---------------------------------------------------------------------------
 
 
-def worker_train(workdir, dp, mp):
+def worker_train(workdir, dp, mp, backbone="mobilenet", train_bn="1"):
     rank, world = distributed.initialize(device="cpu", timeout_s=TIMEOUT_S)
     assert world == dp * mp
     setup = np.load(os.path.join(workdir, "setup.npz"))
     state_dict = {k[3:]: setup[k] for k in setup.files if k.startswith("sd.")}
     batch = {k[6:]: setup[k] for k in setup.files if k.startswith("batch.")}
-    cfg = port_config(DATA_PARALLEL=dp, MODEL_PARALLEL=mp, BATCH_SIZE=GLOBAL_BATCH // dp)
+    cfg = port_config(DATA_PARALLEL=dp, MODEL_PARALLEL=mp, BATCH_SIZE=GLOBAL_BATCH // dp,
+                      BACKBONE=backbone, TRAIN_BN=train_bn == "1")
     mesh = mesh_lib.build_mesh(cfg)
     model = port_model("training", cfg, state_dict)
     shardings = mesh_lib.place_network(model.net, mesh)
     before = wide_shapes(model.net)
+    norms = [m for m in model.net.modules() if isinstance(m, torch.nn.BatchNorm2d)]
+    grouped = sum(m.data_group is not None for m in norms)
     tx = recording(state_lib.make_optimizer(LR, cfg, dict(model.net.named_parameters())))
     tx.shard(shardings, mesh.model_group)
     step = trainer.make_train_step(cfg, tx, "training", mesh=mesh)
@@ -149,13 +152,15 @@ def worker_train(workdir, dp, mp):
     after = wide_shapes(model.net)
     ckpt = os.path.join(workdir, "step.pt")
     state_lib.save_checkpoint(ckpt, state, epoch=1, mesh=mesh, shardings=shardings)
-    grads = mesh_lib.gather_tree(tx.seen, shardings, mesh)
+    # a parameter the loss does not read (the FPN network's neck) has none
+    grads = mesh_lib.gather_tree({k: g for k, g in tx.seen.items() if g is not None},
+                                 shardings, mesh)
     if rank == 0:
         np.savez(os.path.join(workdir, "grads.npz"), **{k: g.numpy() for k, g in grads.items()})
     # the detector on the same mesh (every rank of a model group passes the
     # same images; here all ranks do)
-    det = ShardedDetector(port_model("inference", port_config(OBJ_THRESHOLD=0.0),
-                                     state_dict).net, port_config(OBJ_THRESHOLD=0.0), mesh)
+    det_cfg = port_config(OBJ_THRESHOLD=0.0, BACKBONE=backbone)
+    det = ShardedDetector(port_model("inference", det_cfg, state_dict).net, det_cfg, mesh)
     held = {k: list(p.shape) for k, p in det.net.named_parameters()}
     out = det.local_results(det(setup["images"]))
     if rank == 0:
@@ -163,7 +168,7 @@ def worker_train(workdir, dp, mp):
     with open(os.path.join(workdir, f"rank{rank}.json"), "w") as f:
         json.dump({"loss": float(metrics["loss"]), "before": before, "after": after,
                    "dims": {k: v for k, v in shardings.items() if v is not None},
-                   "detector": held}, f)
+                   "detector": held, "batch_norms": [grouped, len(norms)]}, f)
     distributed.shutdown()
 
 
@@ -527,6 +532,6 @@ def test_initialize_single_process_noop(monkeypatch):
 if __name__ == "__main__":
     torch.set_num_threads(1)
     case, workdir, *rest = sys.argv[1:]
-    {"train": lambda: worker_train(workdir, *map(int, rest)),
+    {"train": lambda: worker_train(workdir, int(rest[0]), int(rest[1]), *rest[2:]),
      "detect": lambda: worker_detect(workdir),
      "fit": lambda: worker_fit(workdir)}[case]()

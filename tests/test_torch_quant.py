@@ -273,16 +273,23 @@ def test_seeded_model_quantizes_its_f32_draws():
     ("QUANT_BIAS_CORRECT", True, None),
 ])
 def test_unported_options_raise(qsetup, knob, value, item):
-    """The hybrid (non-mobilenet) int8 mode still raises; the int8 quality
-    knobs, which used to, build a detector that detects (their parity with
-    the JAX package is in test_torch_quant_tools.py)."""
+    """Every option, once held out, builds a detector that detects. The
+    hybrid (non-mobilenet) int8 mode, ROADMAP Queue 1 `item` 9, needs the
+    float network (net=) and raises ValueError without it, and with
+    QUANT_FUSED_MASK, whose kernel takes one map (its parity with the JAX
+    package is in test_torch_fpn.py); the int8 quality knobs' parity is in
+    test_torch_quant_tools.py."""
     v, _, _, calib, _ = qsetup
     cfg = type("X", (PortQ,), {knob: value})()
+    net = None
     if item is not None:
-        with pytest.raises(NotImplementedError, match=item):
+        with pytest.raises(ValueError, match="hybrid"):
             quant.QuantizedDetector.from_variables(v, cfg, calib[:1], device="cpu")
-        return
-    det = quant.QuantizedDetector.from_variables(v, cfg, calib[:1], device="cpu")
+        net = MaskYOLO("inference", cfg, device="cpu").net
+        with pytest.raises(ValueError, match="QUANT_FUSED_MASK"):
+            quant.QuantizedDetector.from_variables(v, cfg, calib[:1], device="cpu", net=net)
+        cfg = type("Y", (type(cfg),), {"QUANT_FUSED_MASK": False})()
+    det = quant.QuantizedDetector.from_variables(v, cfg, calib[:1], device="cpu", net=net)
     out = det.detect_outputs(torch.tensor(calib[:1]), fused_mask=False)
     assert torch.isfinite(out["scores"]).all() and out["masks"].dtype == torch.bool
 

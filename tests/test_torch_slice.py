@@ -186,8 +186,12 @@ def test_model_refuses_cuda_without_a_gpu(monkeypatch):
     assert bf16.backbone.conv1.conv.compute_dtype == torch.bfloat16
     with pytest.raises(ValueError):
         MaskYOLO("serving", PortTiny(), device="cpu")
-    with pytest.raises(NotImplementedError, match="resnet50_fpn"):
-        torch_network.MaskYoloNet(3, 2, backbone="resnet50_fpn")
+    # the ResNet-50 + FPN backbone builds (tests/test_torch_fpn.py); an
+    # unknown one raises
+    fpn = torch_network.MaskYoloNet(3, 2, backbone="resnet50_fpn")
+    assert fpn.backbone.out_channels == 512 and fpn.pick_trunk() == fpn.trunk_pyramid
+    with pytest.raises(ValueError, match="unknown backbone"):
+        torch_network.MaskYoloNet(3, 2, backbone="vgg16")
 
 
 def test_executor_answers_requests(slice_setup):

@@ -123,3 +123,36 @@ def test_layer_bridge_carries_vector_scales_and_bias_corr(rng):
     assert isinstance(b.a_scale, float) and b.a_scale == 0.25
     assert b.act_folded is False and b.bias_corr is None
     assert c.a_scale.dtype == np.float32 and c.w_q is None and not c.quantize
+
+
+def test_fpn_tree_round_trips_through_the_bridge(tiny_config, rng):
+    """The ResNet-50 + FPN network's flax tree (its structure from
+    `jax.eval_shape` of flax's init, random leaves) maps onto every key of
+    the port's FPN network and back unchanged: no flax leaf and no torch key
+    is left over in either direction."""
+    cfg = tiny_config
+    kw = dict(num_classes=cfg.NUM_CLASSES, n_box=cfg.N_BOX,
+              top_feature_map_depth=cfg.TOP_FEATURE_MAP_DEPTH,
+              mask_pool_size=cfg.MASK_POOL_SIZE, backbone="resnet50_fpn")
+    shapes = jax.eval_shape(lambda: JaxNet(image_hw=(64, 64), **kw).init(
+        jax.random.PRNGKey(0), jnp.zeros((1, *cfg.IMAGE_SHAPE)), jnp.zeros((1, 4, 4)),
+        train=False))
+    tree = jax.tree_util.tree_map(lambda s: rng.randn(*s.shape).astype(np.float32),
+                                  jax.tree_util.tree_map(lambda s: s, shapes))
+    tree = {k: dict(v) for k, v in tree.items()}
+    net = MaskYoloNet(image_hw=(64, 64), **kw)
+    state = weights.from_jax_variables(tree, net.state_dict().keys())
+    net.load_state_dict({k: torch.tensor(v) for k, v in state.items()})
+    assert len(state) == _n_leaves(tree) + _n_leaves(tree["batch_stats"]) // 2
+    block = net.backbone.c3_block0
+    assert block.proj is not None and net.backbone.c3_block1.proj is None
+    assert net.backbone.c2_block0.proj is not None      # 64 -> 256 at stride 1
+    np.testing.assert_array_equal(
+        block.conv1.weight.detach().numpy(),
+        tree["params"]["backbone"]["c3_block0"]["conv1"]["kernel"].transpose(3, 2, 0, 1))
+    back = weights.to_jax_variables(net.state_dict())
+    flat = dict(jax.tree_util.tree_leaves_with_path(back))
+    want = jax.tree_util.tree_leaves_with_path(tree)
+    assert len(flat) == len(want)
+    for path, leaf in want:
+        np.testing.assert_array_equal(flat[path], leaf, err_msg=jax.tree_util.keystr(path))

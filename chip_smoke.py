@@ -3,23 +3,22 @@
 
     python3 chip_smoke.py          # from the repository root; needs CUDA and nvcc
     python3 chip_smoke.py --shapes-quality
-                                   # instead of the phases: train Shapes at the
-                                   # JAX package's budget (400 images, 40 epochs,
-                                   # flip-only augmentation, AP callback every 5
-                                   # epochs) in f32 and in bf16 and evaluate on
-                                   # 50 held-out images (box and mask AP50)
+                                   # instead of the phases: tools/quality_run.py
+                                   # at the JAX package's budget (400 images, 40
+                                   # epochs, flip-only augmentation, AP callback
+                                   # every 5 epochs) in f32 and in bf16, box and
+                                   # mask AP on 50 held-out images, float and int8
     python3 chip_smoke.py --int8-quality
-                                   # instead of the phases: generate DenseShapes
-                                   # (80 classes, 416²) from a seed, round-trip
-                                   # its annotations through data/coco.py's RLE
-                                   # JSON, train CocoStyleConfig (300 train, 32
-                                   # val images, 25 epochs, batch 16, lr 1e-3),
-                                   # then evaluate 64 held-out images in f32
-                                   # weights and in four int8 forms: pt (per
-                                   # tensor), pc (per-channel scales), pc_qat
-                                   # (+ 200 finetune steps on 16 calibration
-                                   # images), pc_qat_mw (mask term x4);
-                                   # --train-images N --epochs N set another
+                                   # instead of the phases: tools/quality_run_coco.py
+                                   # (DenseShapes, 80 classes, 416², written as a
+                                   # COCO dataset and read back; 300 train, 32 val
+                                   # images, 25 epochs, batch 16, lr 1e-3) on
+                                   # Coco416Config, then tools/eval_int8.py on 64
+                                   # held-out images in f32 weights and four int8
+                                   # forms: pt (per tensor), pc (per-channel
+                                   # scales), pc_qat (+ 200 finetune steps on 16
+                                   # calibration images), pc_qat_mw (mask term
+                                   # x4); --train-images N --epochs N set another
                                    # training budget
     python3 chip_smoke.py --parent-csrc DIR
                                    # also build whichever of crop_rois.cu,
@@ -171,10 +170,31 @@ Phases, each fatal on failure (nothing is caught):
                  at 1 and 2 ranks (recorded). Every rank is a child process
                  (`--child`) killed after 420 s.
 
-The last lines are a JSON line of F1's results, one of X1's and P1's, the `nvidia-smi`
-name/power-limit line, a JSON line of kernels (times, launches per path,
-bounds), and {"ok": true, "device": {...}}. Without a CUDA device the
-script exits 1 and prints no result.
+ C1. entry      the command-line entry points, each a child process run as a
+     points      user runs it (`python -m mask_yolo_tpu_torch.<entry>` from the
+                 repository root): (a) examples.shapes.train_shapes, 1 epoch on
+                 32 images, writes a checkpoint and config.json; (f)
+                 tools.gen_anchors --dataset shapes --k 3 beside it, its file
+                 equal to the in-process run's; (b) tools.predict on 8 seeded
+                 Shapes PNGs with (a)'s checkpoint and config.json
+                 (OBJ_THRESHOLD 0), float and --quantize with Int8Config's
+                 knobs: its COCO JSON against the in-process detect_batch on
+                 the same images and weights (ids equal, scores within 1e-5,
+                 boxes 1e-3 px, masks >= 99.9 % of pixels; TF32 at torch's
+                 defaults, as the tools run), and predict.run in-process under
+                 the launch counts: 1 K2 a float batch, 10 K1 + 1 K3 an int8
+                 batch; (c) tools.export_model --verify on (a)'s weights; (d)
+                 tools.serve_model from a seeded checkpoint (spread_scores)
+                 and from (c)'s artifact, 8 HTTP POST /detect requests each
+                 (RLE masks) against the in-process BatchingExecutor, the
+                 servers killed after; (e) bench's JSON line with bf16, int8
+                 and int8_fused img/s at batch 128; each tool's wall time
+                 (both recorded)
+
+The last lines are a JSON line of F1's results, one of X1's and P1's, one
+of C1's, the `nvidia-smi` name/power-limit line, a JSON line of kernels
+(times, launches per path, bounds), and {"ok": true, "device": {...}}.
+Without a CUDA device the script exits 1 and prints no result.
 
 A bound is the least time the card could take for the kernel's work: the
 larger of the bytes it must move (each input read once, each output written
@@ -213,7 +233,7 @@ from torch.profiler import ProfilerActivity, profile
 from mask_yolo_tpu_torch import (CocoStyleConfig, MaskYOLO, evaluate_dataset,
                                  make_ap_eval_callback, native, quant, weights)
 from mask_yolo_tpu_torch.data import augment
-from mask_yolo_tpu_torch.data.coco import CocoDataset, dataset_to_coco_json
+from mask_yolo_tpu_torch.data.coco import detections_to_coco_results, rle_decode_counts
 from mask_yolo_tpu_torch.data.dense_shapes import DenseShapesDataset
 from mask_yolo_tpu_torch.data.pipeline import BatchGenerator, data_generator, preload_dataset
 from mask_yolo_tpu_torch.data.prefetch import to_device
@@ -234,7 +254,10 @@ from mask_yolo_tpu_torch.parallel import mesh as parallel_mesh
 from mask_yolo_tpu_torch.pipelines import (detect_from_callables, images_f32,
                                            infer_yolo_from_callables, infer_yolo_outputs,
                                            training_loss)
-from mask_yolo_tpu_torch.serve import BatchingExecutor
+from mask_yolo_tpu_torch.export import ExportedDetector
+from mask_yolo_tpu_torch.serve import BatchingExecutor, rle_to_mask
+from mask_yolo_tpu_torch.tools import (eval_int8, gen_anchors, predict, quality_run,
+                                       quality_run_coco)
 from mask_yolo_tpu_torch.train import state as train_state
 from mask_yolo_tpu_torch.train import trainer
 from mask_yolo_tpu_torch.utils.host_ops import BoundBox
@@ -1843,125 +1866,48 @@ def phase_coco416(dev, smi, counts):
 # ---- --int8-quality: the int8 tools' quality on the 81-class point ------------
 
 
-class RleDenseDataset(CocoDataset):
-    """A DenseShapes set whose annotations went through data/coco.py's RLE
-    JSON (dataset_to_coco_json without image files, CocoDataset.load_coco):
-    masks and classes come from the JSON, the pixels from the generator."""
-
-    def __init__(self, count, seed, workdir):
-        super().__init__()
-        self.dense = DenseShapesDataset()
-        self.dense.load_dense(count, 416, 416, seed=seed, num_classes=80)
-        self.dense.prepare()
-        ann = dataset_to_coco_json(self.dense, str(workdir / f"coco_{seed}"), write_images=False)
-        self.load_coco(ann, "")
-        self.prepare()
-
-    def load_image(self, image_id):
-        return self.dense.load_image(self.image_info[image_id]["id"])
-
-
 def int8_quality(dev, smi, workdir, train_images=300, epochs=25):
-    """Train CocoStyleConfig on DenseShapes (by default at the default budget
-    of the JAX package's tools/quality_run_coco.py: 300 train / 32 val images,
-    25 epochs, batch 16, lr 1e-3, score threshold 0.35), then evaluate 64
-    held-out images with evaluate_dataset in f32 weights and in the int8
-    variants of tools/eval_int8.py (16 calibration images, 200 finetune steps
-    at lr 1e-5), on the port's main int8 path (K1 where the scales are
-    scalar, K3). Prints one JSON line."""
-    class RunConfig(Coco416Config):
-        BATCH_SIZE = 16
-        LABELS = ["background"] + [f"c{i:02d}" for i in range(1, 81)]
-
-    t0 = time.perf_counter()
-    train_ds, val_ds, eval_ds = (RleDenseDataset(n, SEED + i, workdir)
-                                 for i, n in enumerate((train_images, 32, 64)))
-    log(f"[int8-quality] train {len(train_ds.image_ids)}, val {len(val_ds.image_ids)}, eval "
-        f"{len(eval_ds.image_ids)} images, {train_ds.num_classes} classes, through the RLE JSON "
-        f"in {time.perf_counter() - t0:.1f} s")
-    cfg = RunConfig()
-    model = MaskYOLO("training", cfg, model_dir=str(workdir / "ckpt"), seed=SEED, device=dev)
-    t0 = time.perf_counter()
-    model.train(train_ds, val_ds, 1e-3, epochs=epochs, verbose=False)
-    torch.cuda.synchronize()
-    train_s = time.perf_counter() - t0
-    model.save_weights(str(workdir / "weights.pt"))
-    log(f"[int8-quality] trained {epochs} epochs in {train_s:.1f} s")
-    del model
-    calib = np.stack([eval_ds.load_image(i) for i in list(eval_ds.image_ids)[:16]])
-
-    variants = {"f32": None, "pt": {}, "pc": {"QUANT_PER_CHANNEL_ACT": True},
-                "pc_qat": {"QUANT_PER_CHANNEL_ACT": True, "qat": True},
-                "pc_qat_mw": {"QUANT_PER_CHANNEL_ACT": True, "qat": True,
-                              "QUANT_QAT_MASK_WEIGHT": 4.0}}
-    results = {}
-    for name, knobs in variants.items():
-        knobs = dict(knobs or {})
-        qat = knobs.pop("qat", False)
-        vcfg = type("VariantConfig", (RunConfig,), knobs)()
-        infer = MaskYOLO("inference", vcfg, seed=SEED, device=dev)
-        infer.load_weights(str(workdir / "weights.pt"))
-        t0 = time.perf_counter()
-        for kern in KERNELS.values():
-            kern.launches = 0
-        if name != "f32":
-            infer.quantize(calib, finetune_steps=200 if qat else 0, finetune_lr=1e-5)
-        r = evaluate_dataset(infer, eval_ds, vcfg, batch_size=8, score_threshold=0.35)
-        r.pop("per_image")
-        r["seconds"] = round(time.perf_counter() - t0, 1)
-        r["launches"] = {n: kern.launches for n, kern in KERNELS.items()}
-        if qat:
-            r["finetune"] = infer._qdet.finetune_result
-        results[name] = r
-        log(f"[int8-quality] {name}: box AP50 {r['box_ap50']:.4f}, box mAP {r['box_map']:.4f}, "
-            f"mask AP50 {r['mask_ap50']:.4f}, mask mAP {r['mask_map']:.4f} ({r['seconds']} s; "
-            f"launches {r['launches']})")
-        del infer
-        torch.cuda.empty_cache()
+    """tools/quality_run_coco.py at its default budget (300 train / 32 val
+    images, 25 epochs, batch 16, lr 1e-3, score threshold 0.35) on
+    Coco416Config (the port's main int8 path: K1 where the scales are
+    scalar, K3), f32 evaluation only, then tools/eval_int8.py on its weights
+    and 64 held-out images: f32 and the int8 variants pt, pc, pc_qat,
+    pc_qat_mw (16 calibration images, 200 finetune steps at lr 1e-5).
+    Prints one JSON line."""
+    argv = ["--train-images", str(train_images), "--val-images", "32", "--eval-images", "64",
+            "--epochs", str(epochs), "--skip-int8", "--num-overlays", "0",
+            "--out", str(workdir), "--device", str(dev)]
+    args = quality_run_coco.parser().parse_args(argv)
+    trained = quality_run_coco.run(quality_run_coco.run_config(args, Coco416Config), args)
+    args = eval_int8.parser().parse_args(
+        ["--weights", str(workdir / "weights"), "--data", str(workdir / "coco_eval"),
+         "--variants", "f32", "pt", "pc", "pc_qat", "pc_qat_mw", "--device", str(dev)])
+    for kern in KERNELS.values():
+        kern.launches = 0
+    result = eval_int8.run(eval_int8.run_config(args, Coco416Config), args)
     print(json.dumps({"int8_quality": {
-        "device": smi, "train_seconds": round(train_s, 1), "epochs": epochs,
-        "train_images": train_images,
-        "eval_images": 64, "calib_images": 16, "qat_steps": 200, "results": results}}),
-        flush=True)
+        "device": smi, "train_seconds": trained["train_seconds"], "epochs": epochs,
+        "train_images": train_images, "f32_at_train_time": {
+            k: trained[k] for k in ("box_ap50", "mask_ap50", "box_map", "mask_map")},
+        "launches": {n: kern.launches for n, kern in KERNELS.items()}, **result}}), flush=True)
 
 
 # ---- --shapes-quality: the port's quality number ------------------------------
 
 
 def shapes_quality(dev, smi, workdir):
-    """Train Shapes at the JAX package's budget (tools/quality_run.py there:
-    400 train / 50 val / 50 held-out images, 40 epochs, batch 16, lr 1e-3,
-    flip-only augmentation, the AP callback every 5 epochs, score threshold
-    0.35) in f32 and in bf16, then evaluate_dataset on the held-out images.
-    Prints one JSON line a dtype."""
+    """tools/quality_run.py at the JAX package's recorded budget (400 train /
+    50 val / 50 held-out images, 40 epochs, batch 16, lr 1e-3, flip-only
+    augmentation, the AP callback every 5 epochs, score threshold 0.35) in
+    f32 and in bf16, without overlays (no matplotlib on the card's
+    machine). Prints one JSON line a dtype."""
     for dtype in ("float32", "bfloat16"):
-        cfg = type("QualityConfig", (ShapesConfig,), {"COMPUTE_DTYPE": dtype})()
-        out = workdir / dtype
-        out.mkdir(parents=True)
-        train_ds, val_ds, eval_ds = (shapes_dataset(n, SEED + i, cfg)
-                                     for i, n in enumerate((400, 50, 50)))
-        cb = make_ap_eval_callback(eval_ds, cfg, every=5, batch_size=8, score_threshold=0.35,
-                                   history_path=str(out / "ap_history.jsonl"),
-                                   best_weights_path=str(out / "best.pt"))
-        model = MaskYOLO("training", cfg, model_dir=str(out / "ckpt"), seed=SEED, device=dev)
-        t0 = time.perf_counter()
-        model.train(train_ds, val_ds, 1e-3, epochs=40, verbose=False,
-                    augmentation=augment.Sequential([augment.Fliplr(0.5)], seed=SEED + 7),
-                    custom_callbacks=[cb])
-        torch.cuda.synchronize()
-        train_s = time.perf_counter() - t0
-        model.save_weights(str(out / "weights.pt"))
-        infer = MaskYOLO("inference", cfg, seed=SEED, device=dev)
-        infer.load_weights(str(out / "weights.pt"))
-        t0 = time.perf_counter()
-        result = evaluate_dataset(infer, eval_ds, cfg, batch_size=8, score_threshold=0.35)
-        result.pop("per_image")
-        result.update(compute_dtype=dtype, train_seconds=round(train_s, 1),
-                      eval_seconds=round(time.perf_counter() - t0, 1), epochs=40,
-                      train_images=400, best_callback_box_ap50=cb.best, device=smi,
-                      ap_trajectory=[{k: e[k] for k in ("epoch", "box_ap50", "mask_ap50")}
-                                     for e in cb.history])
-        print(json.dumps({"shapes_quality": result}), flush=True)
+        args = quality_run.parser().parse_args(
+            ["--augment-flip-only", "--eval-every", "5", "--num-overlays", "0",
+             "--compute-dtype", dtype, "--out", str(workdir / dtype), "--device", str(dev)])
+        result = quality_run.run(quality_run.run_config(args), args)
+        print(json.dumps({"shapes_quality": {"compute_dtype": dtype, "device": smi, **result}}),
+              flush=True)
 
 
 # ---- phases X1 and P1: the export artifact and the parallel paths -----------
@@ -2688,6 +2634,283 @@ CHILDREN = {"export": child_export, "export_fpn": child_export_fpn, "nccl": chil
             "tp": lambda dev, workdir: child_mesh("tp", dev, workdir)}
 
 
+# ---- phase C1: the command-line entry points ----------------------------------
+
+REPO = Path(__file__).resolve().parent
+TOOL_TIMEOUT_S = 300               # C1: a tool's process that runs longer is killed
+C1_IMAGES, C1_REQUESTS = 8, 8      # predict's PNGs (one batch of 8), serve's requests
+C1_TRAIN = ("--train-images", "32", "--val-images", "8", "--epochs", "1")
+# predict's COCO results and serve's answers against the in-process path:
+# ids equal, scores and boxes (px) within these, masks equal on this share
+C1_SCORE, C1_BOX_PX, C1_MASK = 1e-5, 1e-3, 0.999
+
+
+def tool(module, *argv):
+    """`python -m mask_yolo_tpu_torch.<module> argv` from the repository
+    root, as a user runs it; killed after TOOL_TIMEOUT_S. Returns (stdout,
+    seconds); raises if it exits non-zero."""
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", f"mask_yolo_tpu_torch.{module}",
+                           *map(str, argv)], cwd=REPO, capture_output=True, text=True,
+                          timeout=TOOL_TIMEOUT_S)
+    if proc.returncode != 0:
+        raise AssertionError(f"{module} exited {proc.returncode}:\n{proc.stdout[-3000:]}\n"
+                             f"{proc.stderr[-5000:]}")
+    return proc.stdout, time.perf_counter() - t0
+
+
+class TorchDefaults:
+    """TF32 as torch sets it by default (on for cuDNN, off for matmul), as
+    the tools run it in their own processes: the in-process references of
+    C1 compute what the tools compute."""
+
+    def __enter__(self):
+        self.saved = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = True, False
+        return self
+
+    def __exit__(self, *exc):
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = self.saved
+
+
+def rle_agree(got, want):
+    """The share of pixels two COCO uncompressed RLE masks agree on."""
+    shape = tuple(want["size"])
+    if tuple(got["size"]) != shape:
+        return 0.0
+    return float(np.mean(rle_decode_counts(got["counts"], shape)
+                         == rle_decode_counts(want["counts"], shape)))
+
+
+def compare_results(what, got, want):
+    """Two COCO results lists entry for entry at C1's bounds: {measured};
+    raises beyond them or if a list is empty."""
+    if not want or len(got) != len(want):
+        raise AssertionError(f"{what}: {len(got)} results against {len(want)}")
+    score = box = 0.0
+    agree = 1.0
+    for g, w in zip(got, want):
+        if (g["image_id"], g["category_id"]) != (w["image_id"], w["category_id"]):
+            raise AssertionError(f"{what}: ids {g['image_id'], g['category_id']} against "
+                                 f"{w['image_id'], w['category_id']}")
+        score = max(score, abs(g["score"] - w["score"]))
+        box = max(box, float(np.abs(np.subtract(g["bbox"], w["bbox"])).max()))
+        agree = min(agree, rle_agree(g["segmentation"], w["segmentation"]))
+    if score > C1_SCORE or box > C1_BOX_PX or agree < C1_MASK:
+        raise AssertionError(f"{what}: scores {score:.3g} (limit {C1_SCORE}), boxes {box:.3g} px "
+                             f"(limit {C1_BOX_PX}), masks agree {agree:.6f} (limit {C1_MASK})")
+    return {"results": len(got), "exact": got == want, "max_score_err": score,
+            "max_box_err_px": box, "min_mask_agree": agree}
+
+
+def compare_served(what, got, want):
+    """Served answers ({detections: [...]} with RLE masks) against the
+    in-process executor's at C1's bounds: {measured}."""
+    score = box = 0.0
+    agree, n = 1.0, 0
+    for g, w in zip(got, want, strict=True):
+        if [(d["class_id"], d["label"]) for d in g["detections"]] != [
+                (d["class_id"], d["label"]) for d in w["detections"]]:
+            raise AssertionError(f"{what}: classes differ from the in-process executor's")
+        for gd, wd in zip(g["detections"], w["detections"]):
+            score = max(score, abs(gd["score"] - wd["score"]))
+            box = max(box, float(np.abs(np.subtract(gd["box"], wd["box"])).max()))
+            agree = min(agree, float(np.mean(rle_to_mask(gd["mask_rle"], gd["mask_shape"])
+                                             == rle_to_mask(wd["mask_rle"], wd["mask_shape"]))))
+            n += 1
+    if not n or score > C1_SCORE or box > C1_BOX_PX or agree < C1_MASK:
+        raise AssertionError(f"{what}: {n} detections, scores {score:.3g}, boxes {box:.3g} px, "
+                             f"masks agree {agree:.6f}")
+    return {"detections": n, "exact": got == want, "max_score_err": score,
+            "max_box_err_px": box, "min_mask_agree": agree}
+
+
+def start_server(argv, log_path):
+    """Start `tools.serve_model argv --port 0`, stderr to log_path. The
+    caller kills the process."""
+    with open(log_path, "w") as log_file:
+        return subprocess.Popen([sys.executable, "-m", "mask_yolo_tpu_torch.tools.serve_model",
+                                 *map(str, argv), "--port", "0"], cwd=REPO,
+                                stdout=subprocess.PIPE, stderr=log_file, text=True)
+
+
+def serving_port(proc, log_path):
+    """Wait (TOOL_TIMEOUT_S at most) for a server's "serving on
+    http://host:port" line; returns the port."""
+    import select
+
+    deadline = time.perf_counter() + TOOL_TIMEOUT_S
+    while time.perf_counter() < deadline and proc.poll() is None:
+        ready, _, _ = select.select([proc.stdout], [], [], 1.0)
+        line = proc.stdout.readline() if ready else ""
+        if line.startswith("serving on http://"):
+            return int(line.split()[2].rsplit(":", 1)[1])
+    raise AssertionError(f"serve_model did not start:\n{Path(log_path).read_text()[-4000:]}")
+
+
+def post_detect(port, image):
+    import io
+    import urllib.request
+
+    buf = io.BytesIO()
+    np.save(buf, image)
+    req = urllib.request.Request(f"http://127.0.0.1:{port}/detect", data=buf.getvalue(),
+                                 method="POST", headers={"X-Include-Masks": "1"})
+    with urllib.request.urlopen(req, timeout=120) as resp:
+        return json.loads(resp.read())
+
+
+def phase_entry_points(dev, smi, workdir, counts):
+    """C1: the command-line entry points as child processes, `python -m`
+    from the repository root. (a) train_shapes, 1 epoch on 32 images; (f)
+    gen_anchors --dataset shapes --k 3 beside it; (b) predict on 8 seeded
+    Shapes PNGs with (a)'s checkpoint and config.json (OBJ_THRESHOLD 0: a
+    one-epoch model scores low), float and --quantize with Int8Config's
+    knobs, each held to the in-process detect_batch on the same images and
+    weights, and predict.run in-process under the launch counts (1 K2 a
+    float batch; 10 K1 + 1 K3 an int8 batch); (c) export_model --verify on
+    (a)'s weights beside them; (d) serve_model from a seeded checkpoint
+    (spread scores) and from (c)'s artifact, 8 HTTP requests each, against
+    the in-process BatchingExecutor; (e) bench's JSON line with the three
+    paths. Returns C1's results."""
+    t_phase = time.perf_counter()
+    res, seconds = {}, {}
+    ckpt_dir, pngs = workdir / "ckpt", workdir / "images"
+    pool = ThreadPoolExecutor(max_workers=3)
+    try:
+        train = pool.submit(tool, "examples.shapes.train_shapes", *C1_TRAIN,
+                            "--model-dir", ckpt_dir)
+        anchors = pool.submit(tool, "tools.gen_anchors", "--dataset", "shapes", "--k", "3",
+                              "--out", workdir / "anchors_3.txt")
+        from PIL import Image
+
+        pngs.mkdir(parents=True)
+        for i, image in enumerate(shapes_dataset_images(C1_IMAGES, SEED + 9)):
+            Image.fromarray(image).save(pngs / f"{i}.png")
+        _, seconds["train"] = train.result()
+        (ckpt,) = ckpt_dir.glob("saved_model_*_e0001.pt")
+        config = json.loads((ckpt_dir / "config.json").read_text())
+        cfg_json = {"float": {**config, "OBJ_THRESHOLD": 0.0}}
+        cfg_json["int8"] = {**cfg_json["float"], **{k: v for k, v in vars(Int8Config).items()
+                                                    if k.isupper()}}
+        for tag, fields in cfg_json.items():
+            (workdir / f"{tag}.json").write_text(json.dumps(fields))
+
+        def predict_argv(tag):
+            return ["--weights", ckpt, "--config-json", workdir / f"{tag}.json", "--images", pngs,
+                    "--out", workdir / f"predict_{tag}.json", "--score-threshold", "0",
+                    *(["--quantize"] if tag == "int8" else [])]
+
+        runs = {tag: pool.submit(tool, "tools.predict", *predict_argv(tag))
+                for tag in ("float", "int8")}
+        export = pool.submit(tool, "tools.export_model", "--weights", ckpt, "--config-json",
+                             workdir / "float.json", "--out", workdir / "detect.pt2", "--verify")
+        with TorchDefaults():
+            for tag in ("float", "int8"):
+                args = predict.parser().parse_args([str(a) for a in predict_argv(tag)])
+                args.out, args.device = str(workdir / f"inprocess_{tag}.json"), str(dev)
+                cfg = predict.build_config(args)
+                run_main_path(lambda: predict.run(cfg, args), counts.setdefault(tag, {}),
+                              expect=("crop_rois",) if tag == "float"
+                              else ("fused_ds_block", "fused_mask_branch"))
+                # the reference: detect_batch on the same images and weights
+                model = MaskYOLO("inference", cfg, device=dev)
+                model.load_weights(str(ckpt))
+                loaded = [predict.load_image(pngs / f"{i}.png", cfg.IMAGE_SHAPE[:2])
+                          for i in range(C1_IMAGES)]
+                batch = np.stack([l[1] for l in loaded])
+                if tag == "int8":
+                    model.quantize(batch)
+                out = host(model.detect_batch(batch))
+                want = []
+                for i, (_, _, scale) in enumerate(loaded):
+                    idx = np.where(out["valid"][i])[0]
+                    want += detections_to_coco_results(
+                        i, out["boxes"][i][idx], out["classes"][i][idx], out["scores"][i][idx],
+                        np.transpose(out["masks"][i][idx], (1, 2, 0)), scale=scale)
+                stdout, seconds[f"predict_{tag}"] = runs[tag].result()
+                got = json.loads((workdir / f"predict_{tag}.json").read_text())
+                res[f"predict_{tag}"] = compare_results(f"predict {tag}", got, want)
+                res[f"predict_{tag}"]["launches"] = {k: v[-1] for k, v in counts[tag].items()}
+                del model
+        launched = {tag: {k: v[-1] for k, v in counts[tag].items()} for tag in counts}
+        if (launched["float"]["crop_rois"] != 1 or launched["int8"]["fused_ds_block"] != K1_LAUNCHES
+                or launched["int8"]["fused_mask_branch"] != K3_LAUNCHES):
+            raise AssertionError(f"predict's launches for one batch: {launched} (expected 1 K2 "
+                                 f"float, {K1_LAUNCHES} K1 + {K3_LAUNCHES} K3 int8)")
+        stdout, seconds["export_verify"] = export.result()
+        if "verify: artifact matches live model" not in stdout:
+            raise AssertionError(f"export_model --verify printed no verdict:\n{stdout}")
+        stdout, seconds["gen_anchors"] = anchors.result()
+        with TorchDefaults():
+            want_anchors, _ = gen_anchors.run(ShapesConfig(), gen_anchors.parser().parse_args(
+                ["--dataset", "shapes", "--k", "3", "--out", str(workdir / "anchors_ref.txt")]))
+        if (workdir / "anchors_3.txt").read_bytes() != (workdir / "anchors_ref.txt").read_bytes():
+            raise AssertionError("gen_anchors' file differs from the in-process run's")
+        res["gen_anchors"] = [float(x) for x in want_anchors.reshape(-1)]
+    finally:
+        pool.shutdown(wait=True, cancel_futures=True)
+
+    # (d) serve: a seeded checkpoint whose scores pass OBJ_THRESHOLD, and
+    # (c)'s artifact (OBJ_THRESHOLD 0)
+    seeded = spread_scores(MaskYOLO("inference", ShapesConfig(), seed=SEED, device=dev))
+    seeded.save_weights(str(workdir / "serve.pt"))
+    del seeded
+    requests = shapes_dataset_images(C1_REQUESTS, SEED + 10)
+    servers = {"weights": ["--weights", workdir / "serve.pt", "--config", "shapes"],
+               "artifact": ["--artifact", workdir / "detect.pt2"]}
+    procs = {}
+    try:
+        t0 = time.perf_counter()
+        for tag, argv in servers.items():   # both start at once
+            procs[tag] = start_server(argv, workdir / f"serve_{tag}.log")
+        ports = {tag: serving_port(proc, workdir / f"serve_{tag}.log")
+                 for tag, proc in procs.items()}
+        seconds["serve_start"] = time.perf_counter() - t0
+        for tag, port in ports.items():
+            got = [post_detect(port, image) for image in requests]
+            if tag == "weights":
+                cfg = type("ServeConfig", (ShapesConfig,), {"BATCH_SIZE": 8})()
+                model = MaskYOLO("inference", cfg, device=dev)
+                model.load_weights(str(workdir / "serve.pt"))
+            else:
+                model = ExportedDetector.load(workdir / "detect.pt2", device=dev)
+                cfg = model.serve_config()
+            ex = BatchingExecutor(model, cfg, batch_size=cfg.BATCH_SIZE)
+            try:
+                with TorchDefaults():
+                    want = [ex.detect(image, include_masks=True) for image in requests]
+            finally:
+                ex.shutdown()
+            res[f"serve_{tag}"] = compare_served(f"serve {tag}", got, want)
+            del model
+    finally:
+        for proc in procs.values():
+            proc.kill()
+            proc.wait()
+    seconds["serve"] = time.perf_counter() - t0
+
+    # (e) bench, alone on the card
+    stdout, seconds["bench"] = tool("bench")
+    bench = json.loads(stdout.strip().splitlines()[-1])
+    if set(bench["per_path"]) != {"bf16", "int8", "int8_fused"} or not all(
+            v > 0 for v in bench["per_path"].values()):
+        raise AssertionError(f"bench: {bench}")
+    res["bench"] = bench
+    seconds["phase"] = time.perf_counter() - t_phase
+    res["seconds"] = seconds
+    log(f"[entry points] {json.dumps(res)}")
+    log(f"[entry points] bench at batch {bench['batch_size']}: {bench['per_path']} img/s on "
+        f"{smi}; C1 took {seconds['phase']:.1f} s (recorded, not claimed)")
+    return res
+
+
+def shapes_dataset_images(count, seed):
+    ds = shapes_dataset(count, seed, ShapesConfig())
+    return [ds.load_image(i) for i in ds.image_ids]
+
+
+
 def kernel_line(name, source, replaces, launches, err, ms, plain_ms, bnd, **extra):
     """One entry of the kernels JSON line; launches: {path: count}."""
     return {"name": name, "route": "cuda", "source": f"mask_yolo_tpu_torch/csrc/{source}",
@@ -2814,6 +3037,15 @@ def main() -> int:
     finally:
         shutil.rmtree(fpn_dir, ignore_errors=True)
     torch.cuda.empty_cache()
+    entry_dir = workdir.parent / "chip_smoke_entry"
+    shutil.rmtree(entry_dir, ignore_errors=True)
+    entry_dir.mkdir(parents=True)
+    entry_counts = {}
+    try:
+        entry = phase_entry_points(dev, smi, entry_dir, entry_counts)
+    finally:
+        shutil.rmtree(entry_dir, ignore_errors=True)
+    torch.cuda.empty_cache()
 
     train_counts, train16_counts, data_counts = {}, {}, {}
     try:
@@ -2838,6 +3070,7 @@ def main() -> int:
             ("float_detect", float_counts), ("int8_detect", int8_counts),
             ("infer_yolo", infer_counts), ("coco416", coco_counts), ("train", train_counts),
             ("train_bf16", train16_counts), ("data_evaluate", data_counts),
+            ("c1_predict", entry_counts["float"]), ("c1_predict_int8", entry_counts["int8"]),
             *export_counts.items(), *parallel_counts.items())}
 
     b128 = lambda r: {key: r.get(key) for key in (                          # noqa: E731
@@ -2877,6 +3110,7 @@ def main() -> int:
         "export": {tag: {k: v for k, v in r.items() if k != "per_call"}
                    for tag, r in exported.items()},
         "parallel": parallel, "device": smi}}))
+    print(json.dumps({"entry_points": entry, "device": smi}))
     print(smi)
     print(json.dumps({"kernels": [
         crop_line("crop_rois", kernel.pop("detect"), kernel),

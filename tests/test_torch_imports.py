@@ -131,3 +131,43 @@ FPN_SLICE = ("models.resnet_fpn", "models.network", "ops.roi_align", "ops.roi_cr
 @pytest.mark.parametrize("name", FPN_SLICE)
 def test_fpn_module_is_covered(name):
     assert ROOT / "mask_yolo_tpu_torch" / (name.replace(".", "/") + ".py") in PORT_FILES
+
+
+# the command-line entry points (bench.py, tools/, examples/): each must
+# exist, so that the tests above cover it, and each runs as `python -m`
+ENTRY_POINTS = ("bench", "tools.predict", "tools.export_model", "tools.serve_model",
+                "tools.gen_anchors", "tools.quality_run", "tools.quality_run_coco",
+                "tools.materialize_textured", "tools.eval_int8",
+                "examples.shapes.train_shapes", "examples.shapes.infer_shapes",
+                "examples.shapes.infer_shapes_yolo", "examples.shapes.eval_shapes",
+                "examples.shapes.test_data_generator", "examples.rice.train_rice",
+                "examples.rice.test_rice_generator", "examples.food.train_food",
+                "examples.food.test_food_generator", "examples.coco.train_coco")
+
+
+@pytest.mark.parametrize("name", ENTRY_POINTS)
+def test_entry_point_module_is_covered(name):
+    assert ROOT / "mask_yolo_tpu_torch" / (name.replace(".", "/") + ".py") in PORT_FILES
+
+
+def test_entry_points_run_as_modules_with_jax_blocked():
+    """`python -m mask_yolo_tpu_torch.<entry> --help` for every entry point,
+    in one interpreter through runpy (as `-m` runs it), with jax, flax and
+    the JAX package blocked: each parses its flags and exits 0."""
+    code = (
+        "import runpy, sys\n"
+        f"for name in {BANNED!r}:\n"
+        "    sys.modules[name] = None\n"
+        f"for entry in {ENTRY_POINTS!r}:\n"
+        "    sys.argv = [entry, '--help']\n"
+        "    try:\n"
+        "        runpy.run_module('mask_yolo_tpu_torch.' + entry, run_name='__main__')\n"
+        "    except SystemExit as e:\n"
+        "        assert e.code == 0, (entry, e.code)\n"
+        "    else:\n"
+        "        raise AssertionError(entry + ': --help did not exit')\n"
+        "print('ok')\n")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
+                          text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip().endswith("ok")

@@ -2,7 +2,7 @@
 """Run the PyTorch port (`mask_yolo_tpu_torch`) once on one NVIDIA GPU.
 
     python3 chip_smoke.py          # from the repository root; needs CUDA and nvcc
-    python3 chip_smoke.py --shapes-quality
+    python3 chip_smoke.py --shapes-quality [--seeds 0 1 2]
                                    # instead of the phases: tools/quality_run.py
                                    # at the JAX package's budget (400 images, 40
                                    # epochs, flip-only augmentation, AP callback
@@ -191,8 +191,30 @@ Phases, each fatal on failure (nothing is caught):
                  and int8_fused img/s at batch 128; each tool's wall time
                  (both recorded)
 
+ M1. tools      the measurement tools (mask_yolo_tpu_torch/tools), each called
+                 in-process through run(config, args) under the launch counts:
+                 bench_roofline (default sizes; each reading at most 105 % of
+                 the H100 SXM5 data sheet: bf16 989.4, int8 1,978.9, TF32
+                 494.7, FP32 66.9 T/s, HBM 3.35 TB/s), profile_stages (batch
+                 128), profile_stages_416, profile_infer_yolo,
+                 profile_layers_416 and bench_416 (batch 16; bench_416 also
+                 per channel and with the FPN backbone's int8 path),
+                 bench_export (coco416, batch 16), bench_train (64 images:
+                 bf16 at torch's TF32 defaults, f32 with TF32 off, f32 with
+                 TF32 on) and ab_infer_yolo_exactness (8 DenseShapes images
+                 written as quality_run_coco writes them, seeded weights
+                 with spread scores). Held: no tool raises and no row is an
+                 error line; every time and rate finite and > 0; each timed
+                 callable's output (the stage profilers' full stage,
+                 bench_416's paths, the artifact) equal bit for bit to the
+                 library entry point's on the same batch, with the same
+                 kernel launches a call (1 K2 for the 224^2 detect as in
+                 phase 4; fused_both's K1 and K3 as Q2's int8 per tensor).
+                 --int8-quality also runs ab_infer_yolo_exactness (k 32 48
+                 64, top-n 256) and profile_infer_yolo on its checkpoint
+
 The last lines are a JSON line of F1's results, one of X1's and P1's, one
-of C1's, the `nvidia-smi` name/power-limit line, a JSON line of kernels
+of C1's, one of M1's, the `nvidia-smi` name/power-limit line, a JSON line of kernels
 (times, launches per path, bounds), and {"ok": true, "device": {...}}.
 Without a CUDA device the script exits 1 and prints no result.
 
@@ -251,7 +273,7 @@ from mask_yolo_tpu_torch.ops.roi_align import (crop_and_resize, crop_and_resize_
 from mask_yolo_tpu_torch.ops.roi_crop import crop_rois, crop_rois_backward, multilevel_crop_rois
 from mask_yolo_tpu_torch.parallel import distributed as parallel_distributed
 from mask_yolo_tpu_torch.parallel import mesh as parallel_mesh
-from mask_yolo_tpu_torch.pipelines import (detect_from_callables, images_f32,
+from mask_yolo_tpu_torch.pipelines import (detect_from_callables, detect_outputs, images_f32,
                                            infer_yolo_from_callables, infer_yolo_outputs,
                                            training_loss)
 from mask_yolo_tpu_torch.export import ExportedDetector
@@ -1890,24 +1912,40 @@ def int8_quality(dev, smi, workdir, train_images=300, epochs=25):
         "train_images": train_images, "f32_at_train_time": {
             k: trained[k] for k in ("box_ap50", "mask_ap50", "box_map", "mask_map")},
         "launches": {n: kern.launches for n, kern in KERNELS.items()}, **result}}), flush=True)
+    # the post-training studies of tools/r5_studies.sh on the trained checkpoint
+    from mask_yolo_tpu_torch.tools import ab_infer_yolo_exactness, profile_infer_yolo
+
+    weights_path = str(workdir / "weights")
+    args = ab_infer_yolo_exactness.parser().parse_args(
+        ["--weights", weights_path, "--data", str(workdir / "coco_eval"), "--k", "32", "48",
+         "64", "--top-n", "256", "--device", str(dev)])
+    ab_infer_yolo_exactness.run(ab_infer_yolo_exactness.run_config(args, Coco416Config), args)
+    args = profile_infer_yolo.parser().parse_args(["--batch", "128", "--weights", weights_path,
+                                                   "--device", str(dev)])
+    rows = profile_infer_yolo.run(profile_infer_yolo.run_config(args), args)
+    if any("error" in r for r in rows):
+        raise AssertionError(f"profile_infer_yolo on the trained checkpoint: {rows}")
 
 
 # ---- --shapes-quality: the port's quality number ------------------------------
 
 
-def shapes_quality(dev, smi, workdir):
+def shapes_quality(dev, smi, workdir, seeds=(0,)):
     """tools/quality_run.py at the JAX package's recorded budget (400 train /
     50 val / 50 held-out images, 40 epochs, batch 16, lr 1e-3, flip-only
     augmentation, the AP callback every 5 epochs, score threshold 0.35) in
-    f32 and in bf16, without overlays (no matplotlib on the card's
-    machine). Prints one JSON line a dtype."""
-    for dtype in ("float32", "bfloat16"):
-        args = quality_run.parser().parse_args(
-            ["--augment-flip-only", "--eval-every", "5", "--num-overlays", "0",
-             "--compute-dtype", dtype, "--out", str(workdir / dtype), "--device", str(dev)])
-        result = quality_run.run(quality_run.run_config(args), args)
-        print(json.dumps({"shapes_quality": {"compute_dtype": dtype, "device": smi, **result}}),
-              flush=True)
+    f32 and in bf16, at each seed of `seeds` (--seed: the datasets, the
+    initial weights and the flip draws), without overlays (no matplotlib on
+    the card's machine). Prints one JSON line a seed and dtype."""
+    for seed in seeds:
+        for dtype in ("float32", "bfloat16"):
+            args = quality_run.parser().parse_args(
+                ["--augment-flip-only", "--eval-every", "5", "--num-overlays", "0",
+                 "--compute-dtype", dtype, "--seed", str(seed),
+                 "--out", str(workdir / f"{dtype}_{seed}"), "--device", str(dev)])
+            result = quality_run.run(quality_run.run_config(args), args)
+            print(json.dumps({"shapes_quality": {"compute_dtype": dtype, "seed": seed,
+                                                 "device": smi, **result}}), flush=True)
 
 
 # ---- phases X1 and P1: the export artifact and the parallel paths -----------
@@ -2905,6 +2943,239 @@ def phase_entry_points(dev, smi, workdir, counts):
     return res
 
 
+# ---- phase M1: the measurement tools -------------------------------------------
+
+# rates each reading may reach: 105 % of the H100 SXM5's dense data-sheet peaks
+ROOFLINE_SPEC = {"bfloat16": 989.4, "int8": 1978.9, "tf32": 494.7, "float32": 66.9}   # T/s
+HBM_SPEC_GBPS = 3350.0
+SPEC_MARGIN = 1.05
+M1_BATCH, M1_STAGES_BATCH, M1_TRAIN_IMAGES, M1_AB_IMAGES = 16, 128, 64, 8
+# the fields of a tool's row that are times or rates: each finite and > 0
+M1_TIMINGS = ("ms", "us_per_img", "img_per_s", "tops", "gbps", "eff_tops", "gemm_us_per_img",
+              "gemm_tops", "cum_us_per_img", "live_img_per_s", "artifact_img_per_s",
+              "live_ms", "artifact_ms", "device_only_images_per_sec", "step_ms",
+              "e2e_images_per_sec", "e2e_sec_per_step", "device_busy_share",
+              "sum_isolated_us_per_img")
+
+
+def tool_args(module, *argv):
+    return module.parser().parse_args([*map(str, argv), "--device", "cuda"])
+
+
+def check_rows(name, rows):
+    """M1's holds on a tool's rows: no error line, every timing finite and
+    > 0."""
+    if not rows:
+        raise AssertionError(f"{name}: no rows")
+    for r in rows:
+        if "error" in r:
+            raise AssertionError(f"{name}: error row {r}")
+        for key in M1_TIMINGS:
+            if key in r and not (r[key] is not None and np.isfinite(r[key]) and r[key] > 0):
+                raise AssertionError(f"{name}: {key} = {r[key]} in {r}")
+    return rows
+
+
+def launches_of(fn):
+    """{kernel: launches} of one call of fn (its outputs computed once)."""
+    for k in KERNELS.values():
+        k.launches = 0
+    with torch.inference_mode():
+        out = fn()
+    torch.cuda.synchronize()
+    return out, {name: k.launches for name, k in KERNELS.items()}
+
+
+def same_call(what, tool_fn, library_fn):
+    """The tool's callable against the library entry point on the same
+    batch: outputs bit for bit, and the same launches of each kernel."""
+    got, got_n = launches_of(tool_fn)
+    want, want_n = launches_of(library_fn)
+    if got.keys() != want.keys() or not all(torch.equal(got[k], want[k]) for k in got):
+        raise AssertionError(f"{what}: the tool's outputs differ from the library call's")
+    if got_n != want_n:
+        raise AssertionError(f"{what}: launches {got_n}, the library call's {want_n}")
+    return got_n
+
+
+def expect_counts(what, got, want):
+    """`want`: the launches of the same path in an earlier phase."""
+    if any(got[name] != n for name, n in want.items()):
+        raise AssertionError(f"{what}: launches {got}, the earlier phase's {want}")
+
+
+def phase_measurement_tools(dev, smi, workdir, counts, coco_counts):
+    """M1: each tool of mask_yolo_tpu_torch/tools called in-process through
+    run(config, args) at a small size under the launch counts, its rows
+    held (no error line, timings finite and > 0), its timed callables held
+    bit for bit to the library entry point on the same batch with the same
+    launches a call (those of phases 4 and Q2 where the path is theirs),
+    and bench_roofline's readings at most 105 % of the card's data sheet.
+    Returns {tool: [rows]} and the seconds."""
+    from mask_yolo_tpu_torch.tools import (_timing, ab_infer_yolo_exactness, bench_416,
+                                           bench_export, bench_roofline, bench_train,
+                                           profile_infer_yolo, profile_layers_416,
+                                           profile_stages, profile_stages_416)
+
+    t_start = time.perf_counter()
+    out, per_call = {}, {}
+
+    def drive(name, fn, expect=()):
+        t0 = time.perf_counter()
+        rows = check_rows(name, run_main_path(fn, counts.setdefault(name, {}), expect))
+        out[name] = rows
+        log(f"[tools] {name}: {len(rows)} rows in {time.perf_counter() - t0:.1f} s; launches "
+            f"{ {k: v[-1] for k, v in counts[name].items()} }")
+        return rows
+
+    with TorchDefaults():
+        # (1) bench_roofline: the card's measured peaks against its data sheet
+        rows = drive("bench_roofline", lambda: bench_roofline.run(None, tool_args(bench_roofline)))
+        for r in rows:
+            spec = (HBM_SPEC_GBPS if "gbps" in r else
+                    ROOFLINE_SPEC["tf32" if r.get("tf32") else r["dtype"]])
+            reading = r.get("gbps", r.get("tops"))
+            log(f"[tools] roofline {r.get('dtype', r.get('probe'))}: {reading:.1f} "
+                f"({100 * reading / spec:.1f} % of the data sheet's {spec}) on {smi}")
+            if reading > SPEC_MARGIN * spec:
+                raise AssertionError(f"bench_roofline reads {reading} > 105 % of {spec}: a "
+                                     f"timing fault")
+
+        # (2) profile_stages, ShapesConfig bf16 224^2, batch 128
+        cfg = profile_stages.bench_config()
+        args = tool_args(profile_stages, M1_STAGES_BATCH)
+        drive("profile_stages", lambda: profile_stages.run(cfg, args), ("crop_rois",))
+        model = _timing.seeded_model(cfg, args)
+        images = _timing.seeded_images(M1_STAGES_BATCH, cfg.IMAGE_SHAPE, dev)
+        full = dict(profile_stages.build_stages(model.net, cfg))["full"]
+        per_call["profile_stages"] = same_call(
+            "profile_stages full", lambda: full(images),
+            lambda: detect_outputs(model.net, images, cfg))
+        expect_counts("profile_stages full", per_call["profile_stages"], {"crop_rois": 1})
+        del model, images
+
+        # (3)-(5) the 416^2 int8 tools, batch 16
+        cfg = profile_stages_416.bench_config()
+        args = tool_args(profile_stages_416, "--batch", M1_BATCH)
+        drive("profile_stages_416", lambda: profile_stages_416.run(cfg, args), ("crop_rois",))
+        model = _timing.seeded_model(cfg, args)
+        det = _timing.quantized(model, cfg, dev)
+        images = _timing.seeded_images(M1_BATCH, cfg.IMAGE_SHAPE, dev)
+        full = dict(profile_stages_416.build_stages(det, cfg))["full"]
+        per_call["profile_stages_416"] = same_call(
+            "profile_stages_416 full", lambda: full(images), lambda: det.detect_outputs(images))
+        args = tool_args(profile_infer_yolo, "--batch", M1_BATCH)
+        drive("profile_infer_yolo",
+              lambda: profile_infer_yolo.run(profile_infer_yolo.run_config(args), args))
+        full = dict(profile_infer_yolo.build_stages(det, cfg))["full"]
+        per_call["profile_infer_yolo"] = same_call(
+            "profile_infer_yolo full", lambda: full(images),
+            lambda: det.infer_yolo_outputs(images))
+        args = tool_args(profile_layers_416, "--batch", M1_BATCH)
+        drive("profile_layers_416", lambda: profile_layers_416.run(cfg, args))
+
+        # (6) bench_416: every path, per channel, and the FPN hybrid's int8
+        q2_pt = {name: coco_counts[name][1] for name in KERNELS}   # Q2's int8 per tensor
+        for tag, argv in (("bench_416", ["--paths", ",".join(bench_416.PATHS)]),
+                          ("bench_416_pc", ["--paths", ",".join(bench_416.PATHS),
+                                            "--set", "QUANT_PER_CHANNEL_ACT=True"]),
+                          ("bench_416_fpn", ["--backbone", "resnet50_fpn", "--paths", "int8"])):
+            args = tool_args(bench_416, "--batch", M1_BATCH, *argv)
+            pcfg = bench_416.run_config(args)
+            drive(tag, lambda: bench_416.run(pcfg, args), ("crop_rois",))
+            if tag == "bench_416_fpn":
+                continue
+            pmodel = model if tag == "bench_416" else _timing.seeded_model(pcfg, args)
+            pdet = det if tag == "bench_416" else _timing.quantized(pmodel, pcfg, dev)
+            for path in bench_416.PATHS:
+                fn = bench_416.path_fn(path, pmodel, pdet, pcfg)
+                if path in bench_416.DETECT:
+                    fused_mask, fused_ds = bench_416.DETECT[path]
+                    lib = (lambda fm=fused_mask, fd=fused_ds:
+                           pdet.detect_outputs(images, fused_mask=fm, fused_ds=fd))
+                elif path == "infer_yolo":
+                    lib = lambda: infer_yolo_outputs(pmodel.net, images, pcfg)   # noqa: E731
+                else:
+                    lib = lambda: pdet.infer_yolo_outputs(images)                # noqa: E731
+                per_call[f"{tag}:{path}"] = same_call(f"{tag} {path}", lambda fn=fn: fn(images),
+                                                      lib)
+        expect_counts("bench_416 fused_both", per_call["bench_416:fused_both"],
+                      {k: q2_pt[k] for k in ("fused_ds_block", "fused_mask_branch")})
+        expect_counts("bench_416 int8", per_call["bench_416:int8"],
+                      {"crop_rois": 1, "fused_ds_block": 0, "fused_mask_branch": 0})
+        del model, det, images
+        torch.cuda.empty_cache()
+
+        # (7) bench_export: the artifact against live, bit for bit
+        args = tool_args(bench_export, "--config", "coco416", "--batch", M1_BATCH)
+        rows = drive("bench_export",
+                     lambda: bench_export.run(bench_export.run_config(args), args),
+                     ("crop_rois",))
+        if not all(r["outputs_equal"] for r in rows) or [r["compute_path"] for r in rows] != [
+                "bfloat16", "int8"]:
+            raise AssertionError(f"bench_export: artifact and live differ: {rows}")
+
+    # (8) bench_train: bf16 at torch's defaults, f32 with TF32 off, then on
+    for tag, dtype, tf32 in (("bench_train_bf16", "bfloat16", None),
+                             ("bench_train_f32", "float32", "off"),
+                             ("bench_train_f32_tf32", "float32", "on")):
+        argv = ["--images", M1_TRAIN_IMAGES, "--compute-dtype", dtype]
+        args = tool_args(bench_train, *argv, *(["--tf32", tf32] if tf32 else []))
+        with TorchDefaults():
+            drive(tag, lambda: bench_train.run(bench_train.run_config(args), args),
+                  ("crop_rois", "crop_rois_backward"))
+
+    # (9) ab_infer_yolo_exactness on an 8-image DenseShapes COCO directory
+    cfg = Coco416Config()
+    data_dir = workdir / "coco_ab"
+    quality_run_coco._make_coco_copy(str(data_dir), M1_AB_IMAGES, 3, 80)
+    spread_scores(MaskYOLO("inference", cfg, seed=SEED, device=dev)).save_weights(
+        str(workdir / "ab_weights.pt"))
+    args = tool_args(ab_infer_yolo_exactness, "--weights", workdir / "ab_weights.pt",
+                     "--data", data_dir, "--limit", M1_AB_IMAGES)
+    with TorchDefaults():
+        report = run_main_path(lambda: ab_infer_yolo_exactness.run(
+            ab_infer_yolo_exactness.run_config(args), args), counts.setdefault(
+                "ab_infer_yolo_exactness", {}), expect=())
+    if report["n_images"] != M1_AB_IMAGES or not all(
+            isinstance(report[k], dict) for k in ("k32", "k48", "k64", "topn256")):
+        raise AssertionError(f"ab_infer_yolo_exactness: {report}")
+    out["ab_infer_yolo_exactness"] = [report]
+    seconds = time.perf_counter() - t_start
+    log(f"[tools] M1: every tool's rows held, outputs bit-equal to the library calls, launches "
+        f"a call {per_call}; {seconds:.1f} s on {smi}")
+    return {"summary": tools_summary(out), "launches_per_call": per_call, "seconds": seconds}
+
+
+def tools_summary(rows):
+    """M1's numbers for the JSON line (every row is printed as it is made)."""
+    def pick(r, *keys):
+        return {k: r[k] for k in keys if k in r}
+
+    out = {}
+    for name, rs in rows.items():
+        if name.startswith(("profile_stages", "profile_infer")):
+            out[name] = {r["stage"]: pick(r, "ms", "us_per_img", "device_busy_share") for r in rs}
+        elif name.startswith("bench_416"):
+            out[name] = {r["path"]: pick(r, "ms", "img_per_s", "device_busy_share") for r in rs}
+        elif name == "bench_roofline":
+            out[name] = {r.get("dtype", r.get("probe")): r.get("tops", r.get("gbps")) for r in rs}
+        elif name == "bench_export":
+            out[name] = {r["flavor"]: pick(r, "live_ms", "artifact_ms", "artifact_vs_live")
+                         for r in rs}
+        elif name.startswith("bench_train"):
+            out[name] = pick(rs[0], "step_ms", "device_only_images_per_sec", "device_busy_share",
+                             "e2e_images_per_sec", "mb_per_step", "tf32")
+        elif name == "profile_layers_416":
+            layers = sorted((r for r in rs if "kind" in r), key=lambda r: -r["us_per_img"])
+            out[name] = {"whole": pick(rs[-1], "us_per_img", "sum_isolated_us_per_img"),
+                         "slowest": [pick(r, "layer", "us_per_img", "pct_of_gemm")
+                                     for r in layers[:5]]}
+        else:
+            out[name] = rs[0]
+    return out
+
+
 def shapes_dataset_images(count, seed):
     ds = shapes_dataset(count, seed, ShapesConfig())
     return [ds.load_image(i) for i in ds.image_ids]
@@ -2935,6 +3206,8 @@ def main() -> int:
     ap.add_argument("--shapes-quality", action="store_true",
                     help="instead of the phases: train Shapes for 40 epochs on 400 images "
                          "in f32 and in bf16 and print held-out box and mask AP")
+    ap.add_argument("--seeds", type=int, nargs="+", default=[0],
+                    help="--shapes-quality: the seeds to train at, one run a seed and dtype")
     ap.add_argument("--child", nargs=2, metavar=("KIND", "DIR"), default=None,
                     help="internal: one process of phase X1, P1 or F1 (export, nccl, dp, tp, "
                          "export_fpn)")
@@ -2966,7 +3239,7 @@ def main() -> int:
             if args.int8_quality:
                 int8_quality(dev, smi, workdir, args.train_images, args.epochs)
             else:
-                shapes_quality(dev, smi, workdir)
+                shapes_quality(dev, smi, workdir, args.seeds)
         finally:
             shutil.rmtree(workdir, ignore_errors=True)
         print(smi)
@@ -3046,6 +3319,15 @@ def main() -> int:
     finally:
         shutil.rmtree(entry_dir, ignore_errors=True)
     torch.cuda.empty_cache()
+    tools_dir = workdir.parent / "chip_smoke_tools"
+    shutil.rmtree(tools_dir, ignore_errors=True)
+    tools_dir.mkdir(parents=True)
+    tools_counts = {}
+    try:
+        measured = phase_measurement_tools(dev, smi, tools_dir, tools_counts, coco_counts)
+    finally:
+        shutil.rmtree(tools_dir, ignore_errors=True)
+    torch.cuda.empty_cache()
 
     train_counts, train16_counts, data_counts = {}, {}, {}
     try:
@@ -3071,7 +3353,8 @@ def main() -> int:
             ("infer_yolo", infer_counts), ("coco416", coco_counts), ("train", train_counts),
             ("train_bf16", train16_counts), ("data_evaluate", data_counts),
             ("c1_predict", entry_counts["float"]), ("c1_predict_int8", entry_counts["int8"]),
-            *export_counts.items(), *parallel_counts.items())}
+            *export_counts.items(), *parallel_counts.items(),
+            *((f"m1_{tool}", c) for tool, c in tools_counts.items()))}
 
     b128 = lambda r: {key: r.get(key) for key in (                          # noqa: E731
         "ms", "plain_ms", "bound_ms", "parent_ms", "gemm_core_ms")}
@@ -3111,6 +3394,7 @@ def main() -> int:
                    for tag, r in exported.items()},
         "parallel": parallel, "device": smi}}))
     print(json.dumps({"entry_points": entry, "device": smi}))
+    print(json.dumps({"measurement_tools": measured, "device": smi}))
     print(smi)
     print(json.dumps({"kernels": [
         crop_line("crop_rois", kernel.pop("detect"), kernel),

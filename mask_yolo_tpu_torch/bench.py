@@ -27,12 +27,11 @@ from __future__ import annotations
 
 import argparse
 import json
-import statistics
 import sys
-import time
 
 import numpy as np
 
+from .tools import _timing
 from .tools._common import add_device_flag
 
 BATCH, WARMUP, ITERS, REPS = 128, 3, 10, 5
@@ -50,23 +49,8 @@ def bench_config(backbone=None):
 
 def images_per_second(call, images, device) -> float:
     """The batch over the median wall time per call (module docstring)."""
-    import torch
-
-    def sync():
-        if device.type == "cuda":
-            torch.cuda.synchronize(device)
-
-    for _ in range(WARMUP):
-        call(images)
-    sync()
-    reps = []
-    for _ in range(REPS):
-        t0 = time.perf_counter()
-        for _ in range(ITERS):
-            call(images)
-        sync()
-        reps.append((time.perf_counter() - t0) / ITERS)
-    return images.shape[0] / statistics.median(reps)
+    return images.shape[0] * 1e3 / _timing.wall_ms(lambda: call(images), device,
+                                                    WARMUP, REPS, ITERS)
 
 
 def run(config, args, batch_size=BATCH):

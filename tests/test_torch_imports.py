@@ -142,7 +142,12 @@ ENTRY_POINTS = ("bench", "tools.predict", "tools.export_model", "tools.serve_mod
                 "examples.shapes.infer_shapes_yolo", "examples.shapes.eval_shapes",
                 "examples.shapes.test_data_generator", "examples.rice.train_rice",
                 "examples.rice.test_rice_generator", "examples.food.train_food",
-                "examples.food.test_food_generator", "examples.coco.train_coco")
+                "examples.food.test_food_generator", "examples.coco.train_coco",
+                # the measurement tools
+                "tools.bench_train", "tools.profile_stages", "tools.profile_stages_416",
+                "tools.profile_infer_yolo", "tools.bench_416", "tools.bench_export",
+                "tools.profile_layers_416", "tools.bench_roofline",
+                "tools.ab_infer_yolo_exactness")
 
 
 @pytest.mark.parametrize("name", ENTRY_POINTS)

@@ -42,8 +42,11 @@ from mask_yolo_tpu_torch import MaskYOLO, bench  # noqa: E402
 from mask_yolo_tpu_torch.config import CocoStyleConfig, Config  # noqa: E402
 from mask_yolo_tpu_torch.data.coco import rle_decode_counts  # noqa: E402
 from mask_yolo_tpu_torch.data.shapes import ShapesDataset  # noqa: E402
-from mask_yolo_tpu_torch.tools import (eval_int8, export_model, gen_anchors,  # noqa: E402
-                                       materialize_textured, predict, quality_run,
+from mask_yolo_tpu_torch.tools import (ab_infer_yolo_exactness, bench_416,  # noqa: E402
+                                       bench_export, bench_roofline, bench_train, eval_int8,
+                                       export_model, gen_anchors, materialize_textured,
+                                       predict, profile_infer_yolo, profile_layers_416,
+                                       profile_stages, profile_stages_416, quality_run,
                                        quality_run_coco, serve_model)
 
 torch.set_num_threads(2)
@@ -510,6 +513,15 @@ def test_materialize_textured_writes_reusable_splits(tmp_path, capsys):
     ("serve_model", ["--weights", "w.pt"]),
     ("quality_run", ["--train-images", "1", "--val-images", "1", "--eval-images", "1"]),
     ("eval_int8", ["--weights", "w.pt", "--data", "{coco}"]),
+    ("bench_roofline", ["--size", "8", "--bandwidth-mb", "1"]),
+    ("profile_stages", ["2"]),
+    ("profile_stages_416", ["--batch", "2"]),
+    ("profile_infer_yolo", ["--batch", "2"]),
+    ("profile_layers_416", ["--batch", "2"]),
+    ("bench_416", ["--batch", "2"]),
+    ("bench_export", ["--batch", "2"]),
+    ("bench_train", ["--batch", "2", "--images", "2"]),
+    ("ab_infer_yolo_exactness", ["--weights", "w.pt", "--data", "{coco}"]),
 ], ids=lambda v: v if isinstance(v, str) else "")
 def test_tools_run_on_the_card_unless_asked(tmp_path, monkeypatch, tool, argv):
     """Without --device each tool asks for the card: with no CUDA device it

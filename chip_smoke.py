@@ -8,6 +8,13 @@
                                    # epochs, flip-only augmentation, AP callback
                                    # every 5 epochs) in f32 and in bf16, box and
                                    # mask AP on 50 held-out images, float and int8
+    python3 chip_smoke.py --fpn-quality [--seeds 0 1 2]
+                                   # instead of the phases: tools/quality_run.py
+                                   # with --backbone resnet50_fpn at the JAX
+                                   # package's FPN budget (bf16, 400 images, 40
+                                   # epochs, flip-only augmentation), box and
+                                   # mask AP on 50 held-out images, float and
+                                   # the int8 hybrid
     python3 chip_smoke.py --int8-quality
                                    # instead of the phases: tools/quality_run_coco.py
                                    # (DenseShapes, 80 classes, 416², written as a
@@ -211,10 +218,27 @@ Phases, each fatal on failure (nothing is caught):
                  kernel launches a call (1 K2 for the 224^2 detect as in
                  phase 4; fused_both's K1 and K3 as Q2's int8 per tensor).
                  --int8-quality also runs ab_infer_yolo_exactness (k 32 48
-                 64, top-n 256) and profile_infer_yolo on its checkpoint
+                 64, top-n 256) and profile_infer_yolo on its checkpoint.
+                 profile_infer_yolo's +nms and full calls are each split by
+                 torch.profiler into kernels, the device's busy time and the
+                 host gap, the host syncs and the slowest kernels and host
+                 ops (recorded)
+
+ G1. graft      mask_yolo_tpu_torch/graft_entry.py (after P1): (a) entry():
+     entry       its fn(state, images) at batch 8, bf16, on seeded noise
+                 images, eager and as its torch.export program (one
+                 crop_rois op), exactly 1 K2 launch a call each, equal to
+                 each other and to MaskYOLO.detect_batch on the same weights
+                 (bit-equal, else the parity bounds), ms a call (recorded);
+                 (b) dryrun_multichip(1): a world of one over NCCL; (c)
+                 dryrun_multichip(2, backend="gloo"): two ranks sharing the
+                 card, mp 2. Each prints the JAX dryrun's line with a finite
+                 loss within rel 1e-4 of the same step in one process on the
+                 CPU, step 1 and the detect's batch, and its rank 0 counts
+                 1 K2 forward and 1 backward in the step, 1 K2 in the detect
 
 The last lines are a JSON line of F1's results, one of X1's and P1's, one
-of C1's, one of M1's, the `nvidia-smi` name/power-limit line, a JSON line of kernels
+of C1's, one of M1's, one of G1's, the `nvidia-smi` name/power-limit line, a JSON line of kernels
 (times, launches per path, bounds), and {"ok": true, "device": {...}}.
 Without a CUDA device the script exits 1 and prints no result.
 
@@ -1483,6 +1507,50 @@ def device_kernels(fn):
     return sum(e.device_time_total for e in events) / 1e3, sum(e.count for e in events)
 
 
+def call_split(fn, reps=5):
+    """One warm call of fn() split by torch.profiler (CPU and CUDA
+    activities over `reps` back-to-back calls closed by a synchronize):
+    the wall ms a call with the profiler off and on, the CUDA kernels a
+    call, the device's busy ms (the union of the kernels' intervals) and the
+    host gap (profiled wall - busy), the host syncs a call, and the five
+    slowest kernels and host ops (by self time) a call."""
+    with torch.inference_mode():
+        for _ in range(3):
+            fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3 / reps
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+            wall_profiled = (time.perf_counter() - t0) * 1e3 / reps
+    spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA)
+    busy, end = 0.0, float("-inf")
+    for lo, hi in spans:
+        busy += max(0.0, hi - max(lo, end))
+        end = max(end, hi)
+    averages = prof.key_averages()
+    kernels = sorted((e for e in averages if e.device_time_total > 0),
+                     key=lambda e: -e.device_time_total)
+    host_ops = sorted((e for e in averages if e.self_cpu_time_total > 0),
+                      key=lambda e: -e.self_cpu_time_total)
+    syncs = sum(e.count for e in averages if e.key in (
+        "cudaStreamSynchronize", "cudaDeviceSynchronize", "aten::_local_scalar_dense"))
+    busy_ms = busy / 1e3 / reps
+    return {"wall_ms": wall, "wall_ms_profiled": wall_profiled,
+            "kernels": len(spans) / reps, "busy_ms": busy_ms,
+            "host_gap_ms": wall_profiled - busy_ms, "syncs": syncs / reps,
+            "top_kernels": [(e.key[:60], e.device_time_total / 1e3 / reps) for e in kernels[:5]],
+            "top_host_ops": [(e.key[:60], e.self_cpu_time_total / 1e3 / reps)
+                             for e in host_ops[:5]]}
+
+
 def infer_yolo_split(tag, trunk, images, cfg, smi):
     """ms per batch of infer_yolo on `trunk`, and its split: the trunk alone,
     decode (boxes, confidence, the reference's softmax, threshold) and the
@@ -1948,6 +2016,24 @@ def shapes_quality(dev, smi, workdir, seeds=(0,)):
                                                  "device": smi, **result}}), flush=True)
 
 
+def fpn_quality(dev, smi, workdir, seeds=(0,)):
+    """tools/quality_run.py at the budget of the JAX package's ResNet-50 +
+    FPN figure (asset/shapes_fpn_metrics_r3.json: 400 train / 50 val / 50
+    held-out images, 40 epochs, batch 16, lr 1e-3, bf16, flip-only
+    augmentation, score threshold 0.35), with no AP callback (that run's
+    metrics carry no AP trajectory) and no overlays, at each seed of
+    `seeds`. Prints one JSON line a seed: the float AP (pooled and per
+    image, box and mask, recall@50) and the int8 hybrid's on the same
+    weights."""
+    for seed in seeds:
+        args = quality_run.parser().parse_args(
+            ["--backbone", "resnet50_fpn", "--compute-dtype", "bfloat16", "--augment-flip-only",
+             "--num-overlays", "0", "--seed", str(seed), "--out", str(workdir / f"fpn_{seed}"),
+             "--device", str(dev)])
+        result = quality_run.run(quality_run.run_config(args), args)
+        print(json.dumps({"fpn_quality": {"seed": seed, "device": smi, **result}}), flush=True)
+
+
 # ---- phases X1 and P1: the export artifact and the parallel paths -----------
 
 EXPORT_BATCHES = (1, 3, 16)        # X1: the artifact's batches against the live path
@@ -2382,6 +2468,84 @@ def phase_parallel(dev, smi, workdir):
     counts["dp_detect"] = {name: [r["launches"][f"detect_{tag}"][name] for r in ranks["dp"]
                                   for tag in ("float", "int8")] for name in KERNELS}
     return {"nccl": nccl, **{kind: r[0] for kind, r in ranks.items()}}, counts
+
+
+# ---- phase G1: the graft entry points (mask_yolo_tpu_torch/graft_entry.py) -----
+
+G1_ITERS = 20                      # G1: calls timed of entry()'s fn, eager and exported
+G1_LOSS_REL = 1e-4                 # G1: the dryrun's loss on the card against the CPU's
+
+
+def phase_graft_entry(dev, smi, counts):
+    """G1: (a) entry() on the card: its fn eager and its torch.export program
+    on 8 seeded noise images, each exactly 1 K2 launch a call, equal to each
+    other and to MaskYOLO.detect_batch on the same weights and images (bit
+    for bit, else the parity bounds), ms a call (recorded); (b)
+    dryrun_multichip(1) over NCCL and (c) dryrun_multichip(2,
+    backend="gloo") on two ranks sharing the card (mp 2): each prints the JAX
+    dryrun's line with a loss within G1_LOSS_REL of the same step in one
+    process on the CPU, step 1 and the detect's batch; its rank 0 counts its
+    kernel launches (one K2 forward and backward in the step, one in the
+    detect). Returns the JSON line's numbers."""
+    from mask_yolo_tpu_torch import graft_entry
+    from mask_yolo_tpu_torch.export import custom_op_counts
+
+    t0 = time.perf_counter()
+    fn, (state, _) = graft_entry.entry(dev)
+    cfg, reference = graft_entry._flagship(graft_entry.ENTRY_BATCH, dev)   # the same weights
+    images = torch.tensor(np.random.default_rng(SEED + 12).random(
+        (graft_entry.ENTRY_BATCH, *cfg.IMAGE_SHAPE), dtype=np.float32), device=dev)
+    eager = host(run_main_path(lambda: fn(state, images), counts.setdefault("g1_entry", {})))
+    program = graft_entry.export_entry(fn, (state, images))
+    ops = custom_op_counts(program)
+    if ops != {"crop_rois": 1}:
+        raise AssertionError(f"entry()'s program holds the custom ops {ops}, not one crop_rois")
+    run = program.module()
+    exported = host(run_main_path(lambda: run(state, images),
+                                  counts.setdefault("g1_entry_export", {})))
+    for path in ("g1_entry", "g1_entry_export"):
+        if counts[path]["crop_rois"] != [1]:
+            raise AssertionError(f"{path}: {counts[path]['crop_rois']} K2 launches, not 1")
+    reference = host(reference.detect_batch(images))
+    result = {"export_ops": ops}
+    for tag, got, want in (("export_vs_eager", exported, eager),
+                           ("eager_vs_detect_batch", eager, reference)):
+        exact, measured = detect_parity(got, want, cfg)
+        result[tag] = "bit-equal" if exact else measured
+    with torch.no_grad():
+        result["eager_ms"] = cuda_ms(lambda: fn(state, images), G1_ITERS, 3)
+        result["export_ms"] = cuda_ms(lambda: run(state, images), G1_ITERS, 3)
+    log(f"[graft_entry] entry(): fn and its program at batch {graft_entry.ENTRY_BATCH}, bf16: "
+        f"{result['export_vs_eager']} to each other, {result['eager_vs_detect_batch']} to "
+        f"detect_batch; 1 K2 a call; {result['eager_ms']:.3f} ms eager, "
+        f"{result['export_ms']:.3f} ms exported, on {smi} (recorded, not claimed)")
+    # the reference: the same step in one process on the CPU (the ranks take
+    # this process's TF32 settings: off)
+    cpu_loss = graft_entry.dryrun_multichip(1, "cpu")["loss"]
+    for n, backend in ((1, None), (2, "gloo")):
+        t1 = time.perf_counter()
+        r = graft_entry.dryrun_multichip(n, dev, backend=backend)
+        if not (np.isfinite(r["loss"]) and r["step"] == 1 and r["detect"][0] == 2 * r["mesh"][0]):
+            raise AssertionError(f"dryrun_multichip({n}): {r}")
+        if abs(r["loss"] - cpu_loss) > G1_LOSS_REL * abs(cpu_loss):
+            raise AssertionError(f"dryrun_multichip({n}): loss {r['loss']} on the card, {cpu_loss} "
+                                 f"on the CPU (limit rel {G1_LOSS_REL})")
+        if tuple(r["mesh"]) != ((1, 1) if n == 1 else (1, 2)) or \
+                r["backend"] != (backend or "nccl"):
+            raise AssertionError(f"dryrun_multichip({n}) ran on {r['mesh']} over {r['backend']}")
+        train = r["launches"]["train"]
+        if (train["crop_rois"], train["crop_rois_backward"]) != (1, 1) or \
+                r["launches"]["detect"]["crop_rois"] != 1:
+            raise AssertionError(f"dryrun_multichip({n}): K2 launches {r['launches']}")
+        for part, launched in r["launches"].items():
+            counts[f"g1_dryrun{n}_{part}"] = {k: [v] for k, v in launched.items()}
+        result[f"dryrun_{n}"] = {**{k: r[k] for k in ("mesh", "loss", "step", "detect",
+                                                      "backend")},
+                                 "loss_rel_err": abs(r["loss"] - cpu_loss) / abs(cpu_loss),
+                                 "s": time.perf_counter() - t1}
+    result["s"] = time.perf_counter() - t0
+    log(f"[graft_entry] G1 {result['s']:.1f} s")
+    return result
 
 
 # ---- phase F1: the ResNet-50 + FPN backbone ------------------------------------
@@ -3071,6 +3235,12 @@ def phase_measurement_tools(dev, smi, workdir, counts, coco_counts):
         per_call["profile_infer_yolo"] = same_call(
             "profile_infer_yolo full", lambda: full(images),
             lambda: det.infer_yolo_outputs(images))
+        # the full stage against +nms, split into device kernels and host gaps
+        stages = dict(profile_infer_yolo.build_stages(det, cfg))
+        infer_split = {tag: call_split(lambda tag=tag: stages[tag](images))
+                       for tag in ("+nms", "full")}
+        for tag, r in infer_split.items():
+            log(f"[tools] profile_infer_yolo {tag} split, batch {M1_BATCH}: {r} on {smi}")
         args = tool_args(profile_layers_416, "--batch", M1_BATCH)
         drive("profile_layers_416", lambda: profile_layers_416.run(cfg, args))
 
@@ -3144,7 +3314,8 @@ def phase_measurement_tools(dev, smi, workdir, counts, coco_counts):
     seconds = time.perf_counter() - t_start
     log(f"[tools] M1: every tool's rows held, outputs bit-equal to the library calls, launches "
         f"a call {per_call}; {seconds:.1f} s on {smi}")
-    return {"summary": tools_summary(out), "launches_per_call": per_call, "seconds": seconds}
+    return {"summary": tools_summary(out), "launches_per_call": per_call,
+            "infer_yolo_split": infer_split, "seconds": seconds}
 
 
 def tools_summary(rows):
@@ -3206,8 +3377,13 @@ def main() -> int:
     ap.add_argument("--shapes-quality", action="store_true",
                     help="instead of the phases: train Shapes for 40 epochs on 400 images "
                          "in f32 and in bf16 and print held-out box and mask AP")
+    ap.add_argument("--fpn-quality", action="store_true",
+                    help="instead of the phases: train Shapes on the ResNet-50 + FPN backbone "
+                         "in bf16 for 40 epochs on 400 images and print held-out box and mask "
+                         "AP, float and int8 hybrid")
     ap.add_argument("--seeds", type=int, nargs="+", default=[0],
-                    help="--shapes-quality: the seeds to train at, one run a seed and dtype")
+                    help="--shapes-quality, --fpn-quality: the seeds to train at, one run a "
+                         "seed (and dtype)")
     ap.add_argument("--child", nargs=2, metavar=("KIND", "DIR"), default=None,
                     help="internal: one process of phase X1, P1 or F1 (export, nccl, dp, tp, "
                          "export_fpn)")
@@ -3233,11 +3409,13 @@ def main() -> int:
         f"{torch.cuda.device_count()} device(s); TF32 off for cuDNN and matmul")
     workdir = Path(__file__).resolve().parent / "build" / "chip_smoke_train"
     shutil.rmtree(workdir, ignore_errors=True)
-    if args.shapes_quality or args.int8_quality:
+    if args.shapes_quality or args.int8_quality or args.fpn_quality:
         try:
             workdir.mkdir(parents=True)
             if args.int8_quality:
                 int8_quality(dev, smi, workdir, args.train_images, args.epochs)
+            elif args.fpn_quality:
+                fpn_quality(dev, smi, workdir, args.seeds)
             else:
                 shapes_quality(dev, smi, workdir, args.seeds)
         finally:
@@ -3346,6 +3524,9 @@ def main() -> int:
         parallel, parallel_counts = phase_parallel(dev, smi, workdir)
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
+    torch.cuda.empty_cache()
+    g1_counts = {}
+    graft = phase_graft_entry(dev, smi, g1_counts)
 
     def launches(name):
         return {path: sum(counts.get(name, [])) for path, counts in (
@@ -3353,7 +3534,7 @@ def main() -> int:
             ("infer_yolo", infer_counts), ("coco416", coco_counts), ("train", train_counts),
             ("train_bf16", train16_counts), ("data_evaluate", data_counts),
             ("c1_predict", entry_counts["float"]), ("c1_predict_int8", entry_counts["int8"]),
-            *export_counts.items(), *parallel_counts.items(),
+            *export_counts.items(), *parallel_counts.items(), *g1_counts.items(),
             *((f"m1_{tool}", c) for tool, c in tools_counts.items()))}
 
     b128 = lambda r: {key: r.get(key) for key in (                          # noqa: E731
@@ -3395,11 +3576,13 @@ def main() -> int:
         "parallel": parallel, "device": smi}}))
     print(json.dumps({"entry_points": entry, "device": smi}))
     print(json.dumps({"measurement_tools": measured, "device": smi}))
+    print(json.dumps({"graft_entry": graft, "device": smi}))
     print(smi)
     print(json.dumps({"kernels": [
         crop_line("crop_rois", kernel.pop("detect"), kernel),
         crop_line("crop_rois_backward", kernel_bwd[0], {"coco416": kernel_bwd[1]},
-                  paths=("train", "data_evaluate", "nccl_train", "dp_train", "tp_train")),
+                  paths=("train", "data_evaluate", "nccl_train", "dp_train", "tp_train",
+                         "g1_dryrun1_train", "g1_dryrun2_train")),
         # the bf16 gradient's kernel: the same wrapper, counted on the bf16 run
         crop_line("crop_rois_backward_bf16", kernel_bwd16[0], {"coco416": kernel_bwd16[1]},
                   counted="crop_rois_backward", paths=("train_bf16",)),

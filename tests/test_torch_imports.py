@@ -147,7 +147,9 @@ ENTRY_POINTS = ("bench", "tools.predict", "tools.export_model", "tools.serve_mod
                 "tools.bench_train", "tools.profile_stages", "tools.profile_stages_416",
                 "tools.profile_infer_yolo", "tools.bench_416", "tools.bench_export",
                 "tools.profile_layers_416", "tools.bench_roofline",
-                "tools.ab_infer_yolo_exactness")
+                "tools.ab_infer_yolo_exactness",
+                # the entry points of __graft_entry__.py
+                "graft_entry")
 
 
 @pytest.mark.parametrize("name", ENTRY_POINTS)

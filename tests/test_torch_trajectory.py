@@ -101,8 +101,8 @@ SCORE_THRESHOLD, AP_TOL = 0.35, 0.02     # the quality run's threshold; one dete
 STEP_LOSS_REL, STATS_REL = 5e-4, 1e-3     # teacher-forced, TRAIN_BN on (Shapes images)
 
 
-def configs(train_bn):
-    fields = dict(TRAJ, TRAIN_BN=train_bn)
+def configs(train_bn, backbone="mobilenet"):
+    fields = dict(TRAJ, TRAIN_BN=train_bn, BACKBONE=backbone)
     return type("JaxTraj", (TinyConfig,), fields), type("PortTraj", (Config,), fields)
 
 
@@ -136,7 +136,8 @@ def jax_init(jcfg):
 
 class RecordingJax(JaxMaskYOLO):
     """The JAX facade with each train step recorded: the batch, the state
-    before it (when `keep_states`), the loss and the statistics after it."""
+    before it (when `keep_states`: True, or a set of step counts), the loss
+    and the statistics after it."""
 
     keep_states = False
 
@@ -147,7 +148,8 @@ class RecordingJax(JaxMaskYOLO):
 
         def recorded(st, batch):
             rec = {"batch": fingerprint(host(batch)), "step": int(st.step)}
-            if self.keep_states:
+            keep = self.keep_states
+            if keep is True or (keep and rec["step"] in keep):
                 rec.update(params=host(st.params), stats=host(st.batch_stats), data=host(batch))
             st, metrics = step(st, batch)
             rec.update(loss=float(metrics["loss"]), stats_after=host(st.batch_stats))
@@ -174,14 +176,14 @@ class RecordingPort(MaskYOLO):
         self._train_step = recorded
 
 
-def train_both(train_bn, tmp_path, keep_states=False):
-    jcfg, pcfg = configs(train_bn)
+def train_both(train_bn, tmp_path, keep_states=False, backbone="mobilenet", epochs=EPOCHS):
+    jcfg, pcfg = configs(train_bn, backbone)
     v = jax_init(jcfg)
     jepochs, pepochs = [], []
 
     jm = RecordingJax("training", jcfg(), model_dir=str(tmp_path / "jax"), seed=0)
     jm.keep_states = keep_states
-    jm.train(*datasets(JaxShapesDataset), LR, EPOCHS, verbose=False,
+    jm.train(*datasets(JaxShapesDataset), LR, epochs, verbose=False,
              augmentation=jaugment.Sequential([jaugment.Fliplr(0.5)], seed=7),
              custom_callbacks=[lambda e, m, vl, s: jepochs.append(
                  {"loss": float(m["loss"]), "val_loss": vl,
@@ -190,7 +192,7 @@ def train_both(train_bn, tmp_path, keep_states=False):
     pm = RecordingPort("training", pcfg(), model_dir=str(tmp_path / "port"), seed=0,
                        device="cpu")
     pm.load_jax_variables(v)
-    pm.train(*datasets(ShapesDataset), LR, EPOCHS, verbose=False,
+    pm.train(*datasets(ShapesDataset), LR, epochs, verbose=False,
              augmentation=augment.Sequential([augment.Fliplr(0.5)], seed=7),
              custom_callbacks=[lambda e, m, vl, s: pepochs.append(
                  {"loss": float(m["loss"]), "val_loss": vl})])

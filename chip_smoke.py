@@ -35,8 +35,9 @@
                                    # git show <commit>:mask_yolo_tpu_torch/csrc/<file>
                                    # > build/parent_csrc/<file>. The crop's C
                                    # interface is 0aa2710's (backward scratch
-                                   # 32*B*K*P bytes), K1's and K3's 112676f's
-                                   # (the weight layouts ParentKernels passes)
+                                   # 32*B*K*P bytes), K1's 8b17af3's (two
+                                   # scalar inverse scales), K3's 112676f's
+                                   # (the layouts ParentKernels passes)
 
 Phases, each fatal on failure (nothing is caught):
   1. device      the card's name and power limit; TF32 off for f32 references
@@ -63,7 +64,13 @@ Phases, each fatal on failure (nothing is caught):
                  tests/test_pallas_mask.py; CUDA-event times beside each
                  kernel's bound and torch._int_mm on the same GEMM shapes (a
                  yardstick of the tensor cores, not the kernels' function;
-                 for K1 the 7x7 (224²) or 13x13 (416²) 1024-wide block's)
+                 for K1 the 7x7 (224²) or 13x13 (416²) 1024-wide block's);
+                 K1 again at every 224² (B=16) and 416² (B=4) shape on
+                 per-channel pairs (vector activation scales folded into the
+                 int8 weights, bias_corr, vector output scales), bit-equal to
+                 its plain version and to quant.run_layer_int8 twice, timed
+                 beside the scalar rows, plus block 6's f32 end of the
+                 per-channel trunk
   9. int8 slice  MaskYOLO.quantize + detect_batch at 224² with K1 and K3
                  (exactly 10 K1 launches and 1 K3 launch), held against the
                  same detector's chained layers
@@ -113,14 +120,15 @@ Phases, each fatal on failure (nothing is caught):
                  the 224² shape (B=16, K=10, 28x28x256, nc 4) and at
                  CocoStyleConfig's (B=3, K=48, 52x52x256, nc 81), within phase
                  8's bounds; its time beside the scalar graph's, the bound and
-                 torch._int_mm
+                 torch._int_mm; each graph's trunk launches K1 10 times on
+                 vector scales and equals its chained layers
  Q2. 416² slice  MaskYOLO("inference", Coco416Config) at full width (bf16, 81
                  classes, K=100, MASK_TOP_K 48) on 16 seeded DenseShapes images:
                  detect_batch float (exactly 1 K2 launch) and, after quantize,
-                 int8 per tensor (10 K1, 1 K3, 0 K2), per channel + bias
-                 correction, and that + 30 finetune steps (0 K1: K1 takes
-                 scalar scales only, its pairs run as chained layers; 1 K3, 0
-                 K2); each fused result held against the same detector's
+                 int8 per tensor, per channel + bias correction, and that +
+                 30 finetune steps (each 10 K1, 1 K3, 0 K2; per channel K1
+                 and K3 take vector scales); each fused result held against
+                 the same detector's
                  chained layers; the finetune's loss not above its start, its
                  crop through K2 forward and backward; ms per batch and its
                  split into trunk, mask branch and the rest (recorded)
@@ -216,7 +224,9 @@ Phases, each fatal on failure (nothing is caught):
                  bench_416's paths, the artifact) equal bit for bit to the
                  library entry point's on the same batch, with the same
                  kernel launches a call (1 K2 for the 224^2 detect as in
-                 phase 4; fused_both's K1 and K3 as Q2's int8 per tensor).
+                 phase 4; fused_both's K1 and K3 as Q2's int8 per tensor,
+                 bench_416 per channel's as Q2's int8 per channel, its
+                 fused_ds 10 K1).
                  --int8-quality also runs ab_infer_yolo_exactness (k 32 48
                  64, top-n 256) and profile_infer_yolo on its checkpoint.
                  profile_infer_yolo's +nms and full calls are each split by
@@ -325,11 +335,15 @@ COLD_BYTES = 100e6                 # cold timing cycles through copies past this
 CROP_TOL = {torch.float32: 1e-5, torch.bfloat16: 3e-2}        # max|Δ| / max|plain|
 MASK_AGREE = 0.995
 # the stride-1 DS blocks of the trunk (H, W, C, O, int8 output?): blocks 1, 3,
-# 5, 6 (f32 out: it ends the backbone), 8-12 and 14 -> 10 K1 calls per trunk
+# 5, 6, 8-12 and 14 -> 10 K1 calls per trunk. Block 6 ends the backbone: per
+# tensor in int8, at the scale the neck and the head share (the C4 hand-off);
+# per channel in f32 (DS_PC_F32), since the two take C4 at their own vector
+# scales
 DS_224 = [(112, 112, 32, 64, True), (56, 56, 64, 128, True), (28, 28, 256, 256, True),
-          (28, 28, 256, 512, False)] + [(14, 14, 512, 512, True)] * 5 + [(7, 7, 1024, 1024, True)]
+          (28, 28, 256, 512, True)] + [(14, 14, 512, 512, True)] * 5 + [(7, 7, 1024, 1024, True)]
 DS_416 = [(208, 208, 32, 64, True), (104, 104, 64, 128, True), (52, 52, 256, 256, True),
-          (52, 52, 256, 512, False), (26, 26, 512, 512, True), (13, 13, 1024, 1024, True)]
+          (52, 52, 256, 512, True), (26, 26, 512, 512, True), (13, 13, 1024, 1024, True)]
+DS_PC_F32 = {"224": (28, 28, 256, 512, False), "416": (52, 52, 256, 512, False)}
 K1_LAUNCHES, K3_LAUNCHES = 10, 1   # per int8 detect_batch
 COCO_BATCH, COCO_CALIB, COCO_QAT_STEPS = 16, 8, 30   # Q2
 THROUGHPUT_BATCH = 128
@@ -793,10 +807,12 @@ def timed_build(name, csrc=_build.CSRC):
 
 
 class ParentKernels:
-    """K1 and K3 as commit 112676f built them (libraries from copies of its
-    csrc/*.cu; either may be None), called with that commit's weight
-    layouts: wpw [C, O]; w1..w4 [9 Cin, co] and wd [co, 4 co]. For timing
-    against the current kernels only."""
+    """K1 as commit 8b17af3 built it and K3 as commit 112676f did
+    (libraries from copies of their csrc/*.cu; either may be None), called
+    with those commits' interfaces: K1 takes wpw [O, C] as now, its two
+    scalar inverse scales as arguments, and reads rows 0-1 of the current
+    three-row dwsb and pwsb; K3 takes w1..w4 [9 Cin, co] and wd
+    [co, 4 co]. For timing against the current kernels only."""
 
     def __init__(self, ds_lib, mask_lib):
         self.ds = self.mask = None
@@ -811,12 +827,12 @@ class ParentKernels:
                                   + [ctypes.c_float] * 6 + [ctypes.c_void_p])
             self.mask.restype = ctypes.c_int
 
-    def ds_block(self, x, kdw, dwsb, wpw_co, pwsb, a_pw, s_out):
+    def ds_block(self, x, kdw, dwsb, wpw, pwsb, a_pw, s_out):
         b, h, w, c = x.shape
-        o = wpw_co.shape[1]
+        o = wpw.shape[0]
         out = torch.empty((b, h, w, o), dtype=torch.int8 if s_out else torch.float32,
                           device=x.device)
-        rc = self.ds(x.data_ptr(), kdw.data_ptr(), dwsb.data_ptr(), wpw_co.data_ptr(),
+        rc = self.ds(x.data_ptr(), kdw.data_ptr(), dwsb.data_ptr(), wpw.data_ptr(),
                      pwsb.data_ptr(), out.data_ptr(), b, h, w, c, o,
                      ds_block.inv_scale(a_pw), ds_block.inv_scale(s_out) if s_out else 0.0,
                      torch.cuda.current_stream().cuda_stream)
@@ -858,24 +874,54 @@ class ParentKernels:
         return out
 
 
-def ds_operands(rng, dev, b, h, w, c, o):
+def ds_operands(rng, dev, b, h, w, c, o, a_pw, s_out):
     """Random K1 operands (wpw packed [O, C]) whose activations spread over
-    relu6's range."""
+    relu6's range, requantized at the scalars a_pw and s_out (0: f32 out),
+    their inverses repeated in row 2 as pack_ds_pair packs a per-tensor
+    pair."""
     t = lambda a: torch.as_tensor(a, device=dev)   # noqa: E731
     x = t(rng.integers(-127, 128, (b, h, w, c), dtype=np.int8))
     kdw = t(rng.integers(-127, 128, (9, c), dtype=np.int8))
     wpw = t(rng.integers(-127, 128, (o, c), dtype=np.int8))
-    dwsb = t(np.stack([rng.uniform(0.5, 1.5, c) * 2.0 / 16129,
-                       rng.normal(0, 0.5, c)]).astype(np.float32))
+    dwsb = t(np.stack([rng.uniform(0.5, 1.5, c) * 2.0 / 16129, rng.normal(0, 0.5, c),
+                       np.full(c, ds_block.inv_scale(a_pw))]).astype(np.float32))
     pwsb = t(np.stack([rng.uniform(0.5, 1.5, o) * 2.0 / (np.sqrt(c) * 4400),
-                       rng.normal(0, 0.5, o)]).astype(np.float32))
+                       rng.normal(0, 0.5, o),
+                       np.full(o, ds_block.inv_scale(s_out) if s_out else 0.0)]
+                      ).astype(np.float32))
     return x, kdw, dwsb, wpw, pwsb
 
 
-def check_k1(rng, dev, shapes, b, tag, parent=None):
-    """K1 vs its plain version at each (H, W, C, O) of `shapes`; returns a
-    dict: max |kernel - plain| over all, and the kernel's, the plain
-    version's, the parent's (with `parent`) and the bound's ms summed over
+def ds_vector_pair(rng, dev, b, h, w, c, o, int8_out):
+    """A per-channel DS pair as QUANT_PER_CHANNEL_ACT leaves it: random f32
+    kernels and biases, vector input scales folded into the int8 weights
+    (quant.quantize_weights), a bias correction; its int8 input at the
+    depthwise layer's vector scale and the output's vector scale (None: f32
+    out). Returns (dw, pw, x, s_out, pack_ds_pair's tensors on `dev`)."""
+    f32 = lambda a: np.asarray(a, np.float32)                       # noqa: E731
+    dw = quant.Layer("dw", "dw", f32(rng.normal(0, 0.3, (3, 3, 1, c))),
+                     f32(rng.normal(0, 0.5, c)), groups=c)
+    pw = quant.Layer("pw", "conv", f32(rng.normal(0, 1.0 / np.sqrt(c), (1, 1, c, o))),
+                     f32(rng.normal(0, 0.5, o)))
+    dw.a_scale = f32(rng.uniform(0.5, 1.5, c) * 2.0 / 127)
+    pw.a_scale = f32(rng.uniform(0.5, 1.5, c) * 3.0 / 127)
+    quant.quantize_weights({"pair": [dw, pw]})
+    dw.bias_corr = f32(rng.normal(0, 0.05, c))
+    pw.bias_corr = f32(rng.normal(0, 0.05, o))
+    s_out = f32(rng.uniform(0.5, 1.5, o) * 3.0 / 127) if int8_out else None
+    x = torch.as_tensor(rng.integers(-127, 128, (b, h, w, c), dtype=np.int8), device=dev)
+    ops = [torch.as_tensor(a, device=dev) for a in ds_block.pack_ds_pair(dw, pw, dw.a_scale,
+                                                                        s_out)]
+    return dw, pw, x, s_out, ops
+
+
+def check_k1(rng, dev, shapes, b, tag, parent=None, vector=False):
+    """K1 vs its plain version at each (H, W, C, O) of `shapes`, on scalar
+    scales (random operands) or, with `vector`, on a per-channel pair
+    (ds_vector_pair), where it must also equal quant.run_layer_int8 twice
+    bit for bit; returns a dict: max |kernel - plain| over all, and the
+    kernel's, the plain version's, the parent's (with `parent`, scalar
+    scales only: its kernel takes no vectors) and the bound's ms summed over
     the list, i.e. one trunk's K1 calls."""
     res = {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
            "parent_ms": 0.0 if parent else None, "bound_by": {"bytes": 0.0, "operations": 0.0}}
@@ -883,11 +929,23 @@ def check_k1(rng, dev, shapes, b, tag, parent=None):
     for shape in shapes:
         h, w, c, o, int8_out = shape
         if shape not in timed:
-            args = ds_operands(rng, dev, b, h, w, c, o)
             a_pw, s_out = 6.0 / 127, (6.0 / 127 if int8_out else 0.0)
-            got = fused_ds_block(*args, a_pw=a_pw, s_out=s_out)
-            want = fused_ds_block_reference(*args, a_pw=a_pw, s_out=s_out)
+            if vector:
+                dw, pw, x, s_vec, ops = ds_vector_pair(rng, dev, b, h, w, c, o, int8_out)
+                args = (x, *ops)
+            else:
+                args = ds_operands(rng, dev, b, h, w, c, o, a_pw, s_out)
+            got = fused_ds_block(*args, out_int8=int8_out)
+            want = fused_ds_block_reference(*args, out_int8=int8_out)
             torch.cuda.synchronize()
+            if vector:
+                with torch.inference_mode():
+                    y1, s1 = quant.run_layer_int8(dw, x, dw.a_scale, pw.a_scale)
+                    chained, _ = quant.run_layer_int8(pw, y1, s1, s_vec)
+                if not torch.equal(got, chained):
+                    raise AssertionError(f"K1 {tag} differs from run_layer_int8 twice at "
+                                         f"{h}x{w} {c}->{o}")
+                del y1, chained
             if int8_out:
                 d = (got.int() - want.int()).abs().max().item()
                 ok = d == 0
@@ -897,18 +955,17 @@ def check_k1(rng, dev, shapes, b, tag, parent=None):
                 ok = torch.allclose(got, want, rtol=1e-6, atol=0.0)
                 spread = ((want > 0) & (want < 6)).float().mean().item()
             log(f"[kernel] K1 {tag} B={b} {h}x{w} {c}->{o} {'int8' if int8_out else 'f32'}: "
-                f"max|kernel-plain| = {d} ({'bit-equal required' if int8_out else 'rtol 1e-6'}), "
+                f"max|kernel-plain| = {d} ({'bit-equal required' if int8_out else 'rtol 1e-6'}"
+                f"{'; equal to run_layer_int8 twice' if vector else ''}), "
                 f"{spread:.3f} of outputs inside the clip range")
             if not (ok and spread > 0.05):
                 raise AssertionError(f"K1 disagrees with its plain version at {h}x{w} {c}->{o}")
             res["max_abs_err"] = max(res["max_abs_err"], float(d))
-            kernel = lambda: fused_ds_block(*args, a_pw=a_pw, s_out=s_out)             # noqa: E731
-            plain = lambda: fused_ds_block_reference(*args, a_pw=a_pw, s_out=s_out)   # noqa: E731
+            kernel = lambda: fused_ds_block(*args, out_int8=int8_out)             # noqa: E731
+            plain = lambda: fused_ds_block_reference(*args, out_int8=int8_out)   # noqa: E731
             p1 = cuda_ms(plain, 10, 2)
             if parent:
-                x, kdw, dwsb, wpw, pwsb = args
-                wpw_co = wpw.t().contiguous()
-                old = lambda: parent.ds_block(x, kdw, dwsb, wpw_co, pwsb, a_pw, s_out)  # noqa: E731
+                old = lambda: parent.ds_block(*args, a_pw, s_out)  # noqa: E731
                 if not torch.equal(old(), got):
                     raise AssertionError(f"the parent's K1 differs from K1 at {h}x{w} {c}->{o}")
                 o1, k1, k2, o2 = (cuda_ms(old, 20, 3), cuda_ms(kernel, 20, 3),
@@ -1060,6 +1117,21 @@ def phase_kernels_int8(rng, dev, model224, cfg224, parent=None):
     k1 = check_k1(rng, dev, DS_224, BATCH, "224", parent_k1)
     k1["b128"] = check_k1(rng, dev, DS_224, THROUGHPUT_BATCH, "224", parent_k1)
     k1["416"] = check_k1(rng, dev, DS_416, 4, "416")
+    # the same calls on per-channel pairs, and block 6's f32 end of the
+    # per-channel trunk
+    vec = check_k1(rng, dev, DS_224, BATCH, "224 vector", vector=True)
+    vec["416"] = check_k1(rng, dev, DS_416, 4, "416 vector", vector=True)
+    ends = [check_k1(rng, dev, [DS_PC_F32[tag]], b, f"{tag} vector", vector=True)
+            for tag, b in (("224", BATCH), ("416", 4))]
+    vec["max_abs_err"] = max(vec["max_abs_err"], vec["416"]["max_abs_err"],
+                             *(r["max_abs_err"] for r in ends))
+    for tag, r, scalar, n in (("224 B=16", vec, k1, len(DS_224)),
+                              ("416 B=4", vec["416"], k1["416"], len(DS_416))):
+        log(f"[kernel] K1 {tag}, the {n} calls: vector scales "
+            f"{r['ms']:.4f} ms against scalar {scalar['ms']:.4f} ms "
+            f"({100 * (r['ms'] / scalar['ms'] - 1):+.1f} %), bound {r['bound_ms']:.4f} ms "
+            f"against {scalar['bound_ms']:.4f}")
+    k1["vector"] = vec
     for b, side, key in ((BATCH, 7, None), (THROUGHPUT_BATCH, 7, "b128"), (4, 13, "416")):
         gemm = int_mm_ms(dev, b * side * side, 1024, 1024)
         log(f"[kernel] K1 yardstick: torch._int_mm [{b * side * side}, 1024] x [1024, 1024] "
@@ -1804,6 +1876,18 @@ def phase_k3_vector_scales(rng, dev, k3_scalar):
         if not all(isinstance(l.a_scale, np.ndarray) for l in layers) or not all(
                 l.act_folded and l.bias_corr is not None for l in layers[:5]):
             raise AssertionError("the graph is not per-channel and bias-corrected")
+        # its trunk runs K1 on vector scales, equal to the chained layers
+        x = torch.as_tensor(rng.random((b, *cfg.IMAGE_SHAPE)), dtype=torch.float32, device=dev)
+        fused, n = launches_of(lambda: model._qdet.trunk(x))
+        with torch.inference_mode():
+            chained = model._qdet.trunk(x, fused_ds=False)
+        same = all(torch.equal(f, c) for f, c in zip(fused, chained))
+        log(f"[kernel] {tag} trunk B={b}: {n['fused_ds_block']} K1 launches on vector scales "
+            f"(want {K1_LAUNCHES}); grid and fmap {'equal' if same else 'NOT equal'} to the "
+            f"chained layers'")
+        if n["fused_ds_block"] != K1_LAUNCHES or not same:
+            raise AssertionError(f"{tag}: the per-channel trunk's K1 calls")
+        del fused, chained
         r = check_k3(rng, dev, model._qdet, cfg, b, k, tag, True)
         log(f"[kernel] K3 {tag} B={b} K={k}: {r['ms']:.3f} ms on vector scales beside "
             f"{scalar['ms']:.3f} ms on the scalar graph (phase 8, the same kernel code), bound "
@@ -1864,6 +1948,7 @@ def coco_split(tag, model, det, images, cfg, smi, total_ms):
     log(f"[coco416] {tag}: detect_batch B={b} {total_ms:.3f} ms/batch ({b * 1e3 / total_ms:.1f} "
         f"img/s) = trunk {trunk:.3f} + {name} {branch:.3f} ({b * kp} ROIs) + the rest "
         f"~{total_ms - trunk - branch:.3f} ms on {smi} (recorded, not claimed)")
+    return {"ms": total_ms, "trunk_ms": trunk, "branch_ms": branch}
 
 
 def phase_coco416(dev, smi, counts):
@@ -1893,11 +1978,11 @@ def phase_coco416(dev, smi, counts):
     del model
 
     results = {}
-    forms = (("per tensor", Coco416Config(), 0, K1_LAUNCHES),
-             ("per channel + bias correction", Coco416PcConfig(), 0, 0),
+    forms = (("per tensor", Coco416Config(), 0),
+             ("per channel + bias correction", Coco416PcConfig(), 0),
              (f"per channel + bias correction + {COCO_QAT_STEPS} finetune steps",
-              Coco416PcConfig(), COCO_QAT_STEPS, 0))
-    for tag, qcfg, qat_steps, want_k1 in forms:
+              Coco416PcConfig(), COCO_QAT_STEPS))
+    for tag, qcfg, qat_steps in forms:
         model = MaskYOLO("inference", qcfg, seed=SEED, device=dev)
         for kern in KERNELS.values():
             kern.launches = 0
@@ -1919,9 +2004,9 @@ def phase_coco416(dev, smi, counts):
         check_outputs(out, qcfg, COCO_BATCH, tag)
         launched = (counts["fused_ds_block"][-1], counts["fused_mask_branch"][-1],
                     counts["crop_rois"][-1])
-        if launched != (want_k1, K3_LAUNCHES, 0):
+        if launched != (K1_LAUNCHES, K3_LAUNCHES, 0):
             raise AssertionError(f"{tag}: launches K1 {launched[0]}, K3 {launched[1]}, K2 "
-                                 f"{launched[2]}; expected {want_k1}, {K3_LAUNCHES}, 0")
+                                 f"{launched[2]}; expected {K1_LAUNCHES}, {K3_LAUNCHES}, 0")
         with torch.inference_mode():
             chained = det.detect_outputs(images, fused_mask=False, fused_ds=False)
             for key in ("boxes", "classes", "scores", "valid"):
@@ -1946,8 +2031,8 @@ def phase_coco416(dev, smi, counts):
         if agree < MASK_AGREE:
             raise AssertionError(f"{tag}: fused and chained int8 masks disagree")
         ms = cuda_ms(lambda: model.detect_batch(images), 5, 2)
-        coco_split(f"int8 {tag}", model, det, images, qcfg, smi, ms)
-        results[tag] = {"ms": ms, "max_abs_err": worst}
+        results[tag] = {**coco_split(f"int8 {tag}", model, det, images, qcfg, smi, ms),
+                        "max_abs_err": worst}
         del model, det
         torch.cuda.empty_cache()
     return results
@@ -3273,6 +3358,12 @@ def phase_measurement_tools(dev, smi, workdir, counts, coco_counts):
                       {k: q2_pt[k] for k in ("fused_ds_block", "fused_mask_branch")})
         expect_counts("bench_416 int8", per_call["bench_416:int8"],
                       {"crop_rois": 1, "fused_ds_block": 0, "fused_mask_branch": 0})
+        # per channel: K1 on every stride-1 pair, as Q2's int8 per channel
+        q2_pc = {name: coco_counts[name][2] for name in KERNELS}
+        expect_counts("bench_416_pc fused_both", per_call["bench_416_pc:fused_both"],
+                      {k: q2_pc[k] for k in ("fused_ds_block", "fused_mask_branch")})
+        expect_counts("bench_416_pc fused_ds", per_call["bench_416_pc:fused_ds"],
+                      {"crop_rois": 1, "fused_ds_block": K1_LAUNCHES, "fused_mask_branch": 0})
         del model, det, images
         torch.cuda.empty_cache()
 
@@ -3539,6 +3630,13 @@ def main() -> int:
 
     b128 = lambda r: {key: r.get(key) for key in (                          # noqa: E731
         "ms", "plain_ms", "bound_ms", "parent_ms", "gemm_core_ms")}
+    # K1's launches: the per-channel forms (Q2's last two int8 runs, M1's
+    # bench_416_pc) on vector scales, every other path on scalar ones
+    k1_paths = launches("fused_ds_block")
+    k1_paths["coco416"] = sum(coco_counts["fused_ds_block"][:2])
+    k1_vector_paths = {"coco416_per_channel": sum(coco_counts["fused_ds_block"][2:]),
+                       "m1_bench_416_pc": k1_paths.pop("m1_bench_416_pc")}
+    k1v = k1["vector"]
 
     def crop_line(name, head, rest, counted=None, paths=None):
         """K2's entry: the headline shape's numbers, the others under
@@ -3587,10 +3685,18 @@ def main() -> int:
         crop_line("crop_rois_backward_bf16", kernel_bwd16[0], {"coco416": kernel_bwd16[1]},
                   counted="crop_rois_backward", paths=("train_bf16",)),
         kernel_line("fused_ds_block", "fused_ds_block.cu", "mask_yolo_tpu/ops/pallas_ds.py:92",
-                    launches("fused_ds_block"), k1["max_abs_err"], k1["ms"], k1["plain_ms"],
+                    k1_paths, k1["max_abs_err"], k1["ms"], k1["plain_ms"],
                     (k1["bound_ms"], k1["bound_by"]), at="one trunk's 10 calls, B=16",
                     parent_ms=k1["parent_ms"], gemm_core_ms=k1["gemm_core_ms"],
                     b128=b128(k1["b128"]), coco416=b128(k1["416"])),
+        # the same kernel on per-channel activation scales (phase 8's vector
+        # rows), launched by the per-channel forms of the 416² slice
+        kernel_line("fused_ds_block, vector scales", "fused_ds_block.cu",
+                    "mask_yolo_tpu/ops/pallas_ds.py:92", k1_vector_paths, k1v["max_abs_err"],
+                    k1v["ms"], k1v["plain_ms"], (k1v["bound_ms"], k1v["bound_by"]),
+                    at="one trunk's 10 calls, B=16, per-channel scales + bias_corr",
+                    gemm_core_ms=k1["gemm_core_ms"], coco416=b128(k1v["416"]),
+                    coco416_trunk_ms={tag: r["trunk_ms"] for tag, r in coco.items()}),
         kernel_line("fused_mask_branch", "fused_mask_branch.cu",
                     "mask_yolo_tpu/ops/pallas_mask.py:233", launches("fused_mask_branch"),
                     k3["max_abs_err"], k3["ms"], k3["plain_ms"], (k3["bound_ms"], k3["bound_by"]),

@@ -7,11 +7,16 @@
 //
 //   x_q  [B, H, W, C] int8     input at the depthwise layer's scale
 //   kdw  [9, C]       int8     depthwise taps, row (di, dj) = 3*di + dj
-//   dwsb [2, C]       f32      (w_scale * s_in, bias) of the depthwise layer
+//   dwsb [3, C]       f32      (w_scale * s_in, bias) of the depthwise layer and
+//                              the inverse of the pointwise layer's input scale
 //   wpw  [O, C]       int8     pointwise weights, K-contiguous (packed by
 //                              ops/ds_block.py::pack_ds_pair)
-//   pwsb [2, O]       f32      (w_scale * a_pw, bias) of the pointwise layer
-//   out  [B, H, W, O] int8 at s_out (inv_s_out > 0) or f32 (inv_s_out == 0)
+//   pwsb [3, O]       f32      (w_scale * a_pw, bias) of the pointwise layer and
+//                              the inverse of the output's scale
+//   out  [B, H, W, O] int8 (out_int8) or f32
+// Row 2 of dwsb and pwsb holds one inverse scale a channel: a per-channel
+// graph's vector, or a per-tensor graph's scalar repeated, so one body runs
+// both. The host computes each inverse once, as f32(1) / f32(scale).
 //
 // What bounds it: at the trunk's shapes the block moves 3-26 MB at batch 16
 // and its GEMM is small, so the bound is memory, and at the narrow late
@@ -47,7 +52,8 @@
 // eight different bank groups.
 // The epilogue arithmetic is the chained int8 path's bit for bit: the
 // explicit _rn intrinsics keep nvcc from contracting multiply-adds into
-// FMAs, and __float2int_rn rounds half to even like torch.round.
+// FMAs, the requantize multiplies by the host's inverse (no reciprocal
+// here), and __float2int_rn rounds half to even like torch.round.
 // Shared memory: 64 (C + 16) + 3 BN (BK + 16) + 64 (BN esz + 16) bytes (esz:
 // 1 or 4 bytes an output), 97 KB at C = 1024. Needs C % 32 == 0 and
 // O % 16 == 0 (the wrapper checks).
@@ -131,19 +137,23 @@ __device__ __forceinline__ void st_cluster8(uint32_t addr, uint32_t rank, int2 v
 
 // CLUSTER: launched in clusters of column groups that share the depthwise
 // conv; otherwise one block computes all of it and no cluster is formed.
+// The launch aims at three blocks an SM; saying so to ptxas (at most 85
+// registers) keeps the epilogue's rows of scales in registers: left to its
+// own choice it took 64 in the 128-wide clustered variant and spilled, and
+// the C >= 256 shapes ran 5-12 % slower on an H100.
 template <int BK, bool CLUSTER>
-__global__ void __launch_bounds__(THREADS)
+__global__ void __launch_bounds__(THREADS, 3)
     fused_ds_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ kdw,
                     const float* __restrict__ dwsb, const int8_t* __restrict__ wpw,
                     const float* __restrict__ pwsb, void* __restrict__ out, int B, int H,
-                    int W, int C, int O, int tiles_per_block, float inv_a_pw, float inv_s_out) {
+                    int W, int C, int O, int tiles_per_block, int out_int8) {
   constexpr int SB = b_stride(BK);
   constexpr int B_TILE = BN * SB;
   const int rank = CLUSTER ? static_cast<int>(cg::this_cluster().block_rank()) : 0;
   const int cl = CLUSTER ? static_cast<int>(cg::this_cluster().num_blocks()) : 1;
   extern __shared__ __align__(16) int8_t smem[];
   __shared__ int row_pix[BM], row_y[BM], row_x[BM];  // image's first pixel, y, x
-  const bool q8 = inv_s_out > 0.f;
+  const bool q8 = out_int8 != 0;
   const int esz = q8 ? 1 : 4;
   const int so = BN * esz + PAD;          // out tile row stride, bytes
   const int sa = C + PAD;                 // A row stride, bytes
@@ -245,13 +255,16 @@ __global__ void __launch_bounds__(THREADS)
       const float4 sc1 = __ldg(reinterpret_cast<const float4*>(dwsb + c0 + 4));
       const float4 bi0 = __ldg(reinterpret_cast<const float4*>(dwsb + C + c0));
       const float4 bi1 = __ldg(reinterpret_cast<const float4*>(dwsb + C + c0 + 4));
+      const float4 iv0 = __ldg(reinterpret_cast<const float4*>(dwsb + 2 * C + c0));
+      const float4 iv1 = __ldg(reinterpret_cast<const float4*>(dwsb + 2 * C + c0 + 4));
       const float sc[8] = {sc0.x, sc0.y, sc0.z, sc0.w, sc1.x, sc1.y, sc1.z, sc1.w};
       const float bi[8] = {bi0.x, bi0.y, bi0.z, bi0.w, bi1.x, bi1.y, bi1.z, bi1.w};
+      const float iv[8] = {iv0.x, iv0.y, iv0.z, iv0.w, iv1.x, iv1.y, iv1.z, iv1.w};
       int8_t* q = reinterpret_cast<int8_t*>(&packed);
 #pragma unroll
       for (int j = 0; j < 8; ++j)
         q[j] = requant(relu6(__fadd_rn(__fmul_rn(__int2float_rn(acc[j]), sc[j]), bi[j])),
-                       inv_a_pw);
+                       iv[j]);
     }
     if (CLUSTER) {
       for (int b = 0; b < cl; ++b) st_cluster8(as_addr + r * sa + c0, b, packed);
@@ -317,6 +330,7 @@ __global__ void __launch_bounds__(THREADS)
         const int n = n0 + c;
         if (n >= O) continue;
         const float sc = __ldg(pwsb + n), bi = __ldg(pwsb + O + n);
+        const float iv = q8 ? __ldg(pwsb + 2 * O + n) : 0.f;
 #pragma unroll
         for (int mt = 0; mt < 2; ++mt)
 #pragma unroll
@@ -325,7 +339,7 @@ __global__ void __launch_bounds__(THREADS)
             const float y =
                 relu6(__fadd_rn(__fmul_rn(__int2float_rn(acc[mt][nt][2 * h + e]), sc), bi));
             if (q8)
-              Cs[r * so + c] = requant(y, inv_s_out);
+              Cs[r * so + c] = requant(y, iv);
             else
               *reinterpret_cast<float*>(Cs + r * so + 4 * c) = y;
           }
@@ -351,9 +365,9 @@ __global__ void __launch_bounds__(THREADS)
 
 template <int BK>
 int launch(const void* x_q, const void* kdw, const void* dwsb, const void* wpw,
-           const void* pwsb, void* out, int B, int H, int W, int C, int O, float inv_a_pw,
-           float inv_s_out, cudaStream_t stream) {
-  const int esz = inv_s_out > 0.f ? 1 : 4;
+           const void* pwsb, void* out, int B, int H, int W, int C, int O, int out_int8,
+           cudaStream_t stream) {
+  const int esz = out_int8 ? 1 : 4;
   const size_t smem = static_cast<size_t>(BM) * (C + PAD) + STAGES * BN * b_stride(BK) +
                       BM * (BN * esz + PAD);
   int device = 0, sms = 0;
@@ -383,7 +397,7 @@ int launch(const void* x_q, const void* kdw, const void* dwsb, const void* wpw,
                                cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
     if (err != cudaSuccess) return static_cast<int>(err);
     fused_ds_kernel<BK, false><<<grid, THREADS, smem, stream>>>(
-        x, k, d, w, p, out, B, H, W, C, O, tiles_per_block, inv_a_pw, inv_s_out);
+        x, k, d, w, p, out, B, H, W, C, O, tiles_per_block, out_int8);
     return static_cast<int>(cudaGetLastError());
   }
   err = cudaFuncSetAttribute(fused_ds_kernel<BK, true>,
@@ -402,7 +416,7 @@ int launch(const void* x_q, const void* kdw, const void* dwsb, const void* wpw,
   cfg.attrs = attr;
   cfg.numAttrs = 1;
   err = cudaLaunchKernelEx(&cfg, fused_ds_kernel<BK, true>, x, k, d, w, p, out, B, H, W, C, O,
-                           tiles_per_block, inv_a_pw, inv_s_out);
+                           tiles_per_block, out_int8);
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }
@@ -413,11 +427,11 @@ int launch(const void* x_q, const void* kdw, const void* dwsb, const void* wpw,
 // cudaGetLastError() after it.
 extern "C" int fused_ds_block(const void* x_q, const void* kdw, const void* dwsb,
                               const void* wpw, const void* pwsb, void* out, int B, int H, int W,
-                              int C, int O, float inv_a_pw, float inv_s_out, void* stream) {
+                              int C, int O, int out_int8, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (C % 128 == 0)
-    return launch<128>(x_q, kdw, dwsb, wpw, pwsb, out, B, H, W, C, O, inv_a_pw, inv_s_out, s);
+    return launch<128>(x_q, kdw, dwsb, wpw, pwsb, out, B, H, W, C, O, out_int8, s);
   if (C % 64 == 0)
-    return launch<64>(x_q, kdw, dwsb, wpw, pwsb, out, B, H, W, C, O, inv_a_pw, inv_s_out, s);
-  return launch<32>(x_q, kdw, dwsb, wpw, pwsb, out, B, H, W, C, O, inv_a_pw, inv_s_out, s);
+    return launch<64>(x_q, kdw, dwsb, wpw, pwsb, out, B, H, W, C, O, out_int8, s);
+  return launch<32>(x_q, kdw, dwsb, wpw, pwsb, out, B, H, W, C, O, out_int8, s);
 }

@@ -45,6 +45,12 @@ def quantize(x, scale):
     last axis."""
     inv = scale_tensor(scale, x.device, True) if isinstance(scale, np.ndarray) \
         else inv_scale(scale)
+    return quantize_inv(x, inv)
+
+
+def quantize_inv(x, inv):
+    """f32 tensor → int8 by its inverse scale `inv` (inv_scale's value: a
+    float, or a tensor over the last axis)."""
     return torch.clamp(torch.round(x * inv), -127, 127).to(torch.int8)
 
 

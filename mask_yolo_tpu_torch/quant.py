@@ -363,31 +363,37 @@ def run_layer_int8(layer: Layer, x, x_scale=None, out_scale=None):
     return y, None
 
 
+def _k1_scale(s) -> bool:
+    """A scale K1 packs: a positive Python float (per tensor), or an
+    all-positive per-channel vector (QUANT_PER_CHANNEL_ACT)."""
+    return (isinstance(s, float) and s > 0.0) or (isinstance(s, np.ndarray) and _scale_ok(s))
+
+
 def _fusable_ds_pair(layer, nxt, x_scale):
     """Can (layer, nxt) run as one fused DS block (K1)? Needs an int8 input
-    already at the dw scale, a stride-1 int8 depthwise, an int8 pointwise
-    with a float input scale, and relu6 on both."""
+    already at the dw scale, a stride-1 int8 depthwise, an int8 pointwise,
+    both input scales floats or vectors, and relu6 on both."""
     return (layer.kind == "dw" and layer.strides == (1, 1)
             and layer.quantize and layer.w_q is not None
-            and layer.act == "relu6" and x_scale is not None
-            and not isinstance(x_scale, np.ndarray)
+            and layer.act == "relu6" and _k1_scale(x_scale)
             and nxt is not None and nxt.kind == "conv"
-            and nxt.w_q is not None and isinstance(nxt.a_scale, float)
-            and nxt.a_scale > 0.0 and nxt.act == "relu6")
+            and nxt.w_q is not None and _k1_scale(nxt.a_scale) and nxt.act == "relu6")
 
 
-def _packed_ds_pair(layer, nxt, scale, device):
+def _packed_ds_pair(layer, nxt, scale, s_out, device):
     """pack_ds_pair's operands on `device`, cached on the dw layer while the
-    arrays it packed (int8 kernels, bias corrections) stay the layers':
-    bias_correct and finetune replace them, which drops the entry."""
+    arrays and scales it packed stay the layers' (compared by identity, so a
+    vector scale is not compared element by element): bias_correct and
+    finetune replace the int8 kernels or bias corrections, which drops the
+    entry."""
     key = ("ds_pack", str(device))
     hit = layer._dev.get(key)
-    src = (layer.w_q, nxt.w_q, layer.bias_corr, nxt.bias_corr)
-    if hit is None or hit[0] != scale or any(a is not b for a, b in zip(hit[1], src)):
-        arrays = pack_ds_pair(layer, nxt, scale)
-        hit = (scale, src, [torch.as_tensor(a, device=device) for a in arrays])
+    src = (scale, s_out, nxt.a_scale, layer.w_q, nxt.w_q, layer.bias_corr, nxt.bias_corr)
+    if hit is None or any(a is not b for a, b in zip(hit[0], src)):
+        arrays = pack_ds_pair(layer, nxt, scale, s_out)
+        hit = (src, [torch.as_tensor(a, device=device) for a in arrays])
         layer._dev[key] = hit
-    return hit[2]
+    return hit[1]
 
 
 def run_layers(layers, x, quant: bool, collect=None, fused_ds: bool = False,
@@ -405,13 +411,14 @@ def run_layers(layers, x, quant: bool, collect=None, fused_ds: bool = False,
         layer = layers[i]
         nxt = layers[i + 1] if i + 1 < len(layers) else None
         if fused_ds and _fusable_ds_pair(layer, nxt, scale):
-            kdw, dwsb, wpw, pwsb = _packed_ds_pair(layer, nxt, scale, x.device)
+            # the block ends int8 where the chained pair would: at the next
+            # layer's scale, or at out_scale where the chain ends
             nxt2 = layers[i + 2] if i + 2 < len(layers) else None
-            ds_out = (nxt2.a_scale if nxt2 is not None and isinstance(nxt2.a_scale, float)
-                      and nxt2.a_scale > 0.0 else 0.0)
-            x = fused_ds_block(x, kdw, dwsb, wpw, pwsb, a_pw=float(nxt.a_scale),
-                               s_out=float(ds_out))
-            scale = ds_out if ds_out else None
+            ds_out = out_scale if nxt2 is None else (
+                nxt2.a_scale if _scale_ok(nxt2.a_scale) else None)
+            kdw, dwsb, wpw, pwsb = _packed_ds_pair(layer, nxt, scale, ds_out, x.device)
+            x = fused_ds_block(x, kdw, dwsb, wpw, pwsb, out_int8=ds_out is not None)
+            scale = ds_out
             i += 2
             continue
         # inter-layer tensors stay int8 whenever the next layer has a scale

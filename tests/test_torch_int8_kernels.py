@@ -38,7 +38,9 @@ def _make_pair(rng, c, o, s_in=0.011, a_pw=0.017):
 def test_ds_block_plain_matches_jax(rng, s_out, shape):
     """(d) K1's plain version == JAX's chained int8 pair, bit for bit (f32
     output: the same f32 ops, so also exact); within 1 LSB of the Pallas
-    kernel, whose requantize takes its inverse scale in f64."""
+    kernel, whose requantize takes its inverse scale in f64. The port's
+    packed scale rows are JAX's two plus a third of f32 inverses: a_pw's
+    over C, s_out's over O (zeros for an f32 output)."""
     b, h, w, c, o = shape
     dw, pw = _make_pair(rng, c, o)
     x_q = rng.randint(-127, 128, size=(b, h, w, c)).astype(np.int8)
@@ -46,18 +48,21 @@ def test_ds_block_plain_matches_jax(rng, s_out, shape):
     chained = np.asarray(jquant.run_layer_int8(pw, x1, s1,
                                                out_scale=s_out if s_out else None)[0])
     packed = pallas_ds.pack_ds_pair(dw, pw, dw.a_scale)
-    mine = ds_block.pack_ds_pair(dw, pw, dw.a_scale)
+    mine = ds_block.pack_ds_pair(dw, pw, dw.a_scale, s_out if s_out else None)
     for name, ours, theirs in zip(("kdw", "dwsb", "wpw", "pwsb"), mine, packed):
         # the port packs wpw K-contiguous, [O, C]: the transpose of JAX's [C, O]
         want = np.asarray(theirs).T if name == "wpw" else np.asarray(theirs)
-        np.testing.assert_array_equal(ours, want, err_msg=name)
+        np.testing.assert_array_equal(ours[:2] if name.endswith("sb") else ours, want,
+                                      err_msg=name)
+    np.testing.assert_array_equal(mine[1][2], np.float32(1) / np.float32(pw.a_scale))
+    np.testing.assert_array_equal(mine[3][2], np.float32(1) / np.float32(s_out) if s_out else 0)
     pallas = np.asarray(pallas_ds.fused_ds_block(
         *map(jnp.asarray, (x_q, *packed)), a_pw=float(pw.a_scale), s_out=float(s_out),
         interpret=True))
 
     launches = ds_block.fused_ds_block.launches
-    got = ds_block.fused_ds_block(*map(torch.tensor, (x_q, *mine)), a_pw=pw.a_scale,
-                                  s_out=s_out).numpy()
+    got = ds_block.fused_ds_block(*map(torch.tensor, (x_q, *mine)),
+                                  out_int8=bool(s_out)).numpy()
     assert ds_block.fused_ds_block.launches == launches   # CPU runs the plain version
     assert got.dtype == (np.int8 if s_out else np.float32)
     np.testing.assert_array_equal(got, chained)
@@ -72,11 +77,12 @@ def test_ds_block_checks_inputs(rng):
     args = list(map(torch.tensor, (rng.randint(-5, 5, (1, 4, 4, 8)).astype(np.int8),
                                    *ds_block.pack_ds_pair(dw, pw, dw.a_scale))))
     with pytest.raises(TypeError):
-        ds_block.fused_ds_block(args[0].float(), *args[1:], a_pw=0.1)
+        ds_block.fused_ds_block(args[0].float(), *args[1:], out_int8=False)
     with pytest.raises(ValueError, match="wpw"):
-        ds_block.fused_ds_block(*args[:3], args[3][:, :4], args[4], a_pw=0.1)
-    with pytest.raises(ValueError, match="a_pw"):
-        ds_block.fused_ds_block(*args, a_pw=0.0)
+        ds_block.fused_ds_block(*args[:3], args[3][:, :4], args[4], out_int8=False)
+    # the two-row scale layout of the JAX package (no row of inverses)
+    with pytest.raises(ValueError, match="dwsb"):
+        ds_block.fused_ds_block(*args[:2], args[2][:2].contiguous(), *args[3:], out_int8=False)
 
 
 @pytest.mark.parametrize("bad", ["jax_layout", "dtype", "non_contiguous"])
@@ -89,7 +95,7 @@ def test_ds_block_refuses_a_bad_packed_wpw(rng, bad):
     wpw = {"jax_layout": wpw.t().contiguous(), "dtype": wpw.int(),
            "non_contiguous": torch.zeros((8, 16), dtype=torch.int8).t()}[bad]
     with pytest.raises(ValueError, match="wpw"):
-        ds_block.fused_ds_block(x_q, kdw, dwsb, wpw, pwsb, a_pw=0.1)
+        ds_block.fused_ds_block(x_q, kdw, dwsb, wpw, pwsb, out_int8=False)
 
 
 @pytest.mark.parametrize("c, o", [(8, 16), (32, 64), (1024, 1024)],

@@ -387,9 +387,9 @@ def test_model_quantize_finetunes_through_the_facade(setup):
 def test_per_channel_and_bias_correct_compose(setup):
     """(g) Both knobs through from_variables: vector scales folded, every
     int8 layer corrected, the int8 trunk within int8 noise of f32 (the bound
-    of tests/test_quant.py), fused and chained paths agreeing: K1 steps
-    aside for vector scales (its pairs run as chained layers), K3 takes
-    them."""
+    of tests/test_quant.py), fused and chained paths agreeing: K1 and K3
+    both take the vector scales (test_torch_ds_vector.py counts K1's
+    calls)."""
     v, _, calib = setup
     _, pcfg = _cfgs(QUANT_PER_CHANNEL_ACT=True, QUANT_BIAS_CORRECT=True)
     det = quant.QuantizedDetector.from_variables(v, pcfg, calib, device="cpu")
